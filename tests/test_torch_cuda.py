@@ -1,0 +1,94 @@
+"""The port's CUDA kernel on the card (``cuda``-marked; skipped without one).
+
+This file imports neither JAX nor the JAX package, so it also runs where
+only PyTorch and the CUDA toolkit are installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+The CPU tests hold the kernel's plain version against the JAX package; here
+the kernel is held against the plain version.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import hand_streams
+from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+from sigman_release_torch.ops.rasterizer import (
+    RasterizeConfig,
+    build_cov3d,
+    rasterize_single,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_cuda.py)")
+    return torch.device("cuda")
+
+
+def test_forward_tiles_kernel_matches_plain(cuda_device):
+    """Hand-made streams: empty tile, chunk-straddling segment, saturation,
+    a Gaussian centred on a pixel (1e-4), and the launch counter."""
+    pairs, start, count = hand_streams(np.random.default_rng(1))
+    args = [torch.from_numpy(a).to(cuda_device) for a in (pairs, start, count)]
+    kw = dict(ntx=2, tiles_per_view=4, chunk=128)
+    before = k1.forward_tiles.launches
+    out = k1.forward_tiles(*args, **kw)
+    assert k1.forward_tiles.launches == before + 1
+    ref = k1.forward_tiles_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_forward_tiles_rejects_bad_inputs(cuda_device):
+    pairs = torch.zeros((128, 16), device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        k1.forward_tiles(pairs.double(), idx, idx, ntx=1, tiles_per_view=1)
+    with pytest.raises(ValueError, match="int32"):
+        k1.forward_tiles(pairs, idx.long(), idx, ntx=1, tiles_per_view=1)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k1.forward_tiles(pairs.requires_grad_(), idx, idx, ntx=1,
+                         tiles_per_view=1)
+
+
+def test_rasterize_single_cuda_matches_cpu(cuda_device):
+    """A random 300-Gaussian scene, 3 views at 96 px: the CUDA path (kernel)
+    against the CPU path (plain version) on the same inputs."""
+    rng = np.random.default_rng(0)
+    n = 300
+    means = rng.normal(0, 0.4, (n, 3)).astype(np.float32)
+    q = rng.normal(size=(n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    rot = np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                    2 * (x * z + w * y), 2 * (x * y + w * z),
+                    1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+                    2 * (x * z - w * y), 2 * (y * z + w * x),
+                    1 - 2 * (x * x + y * y)], -1).reshape(n, 3, 3)
+    scales = rng.uniform(0.02, 0.08, (n, 3))
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    opacity = rng.uniform(0.2, 0.95, n).astype(np.float32)
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.inference import orbit_rig
+
+    cv, cvp = orbit_rig(PRESETS["test_tiny"], 3)
+    cfg = RasterizeConfig(img_h=96, img_w=96)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        cov = build_cov3d(t(scales), t(rot))
+        outs.append(rasterize_single(t(means), cov, t(colors), t(opacity),
+                                     t(cv), t(cvp), torch.ones(3, device=dev),
+                                     cfg))
+    for k in ("image", "alpha", "depth"):
+        diff = (outs[1][k].cpu() - outs[0][k]).abs().max().item()
+        assert diff <= 1e-4, (k, diff)
+    assert outs[1]["alpha"].max().item() > 0.5
