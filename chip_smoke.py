@@ -20,7 +20,21 @@ Phases (any failure exits non-zero before the final line):
              on the main path's own pair stream, and the image through the
              plain version against phase 3's image;
 5. small   — the whole path at ``test_tiny`` on the GPU against the same
-             path on the CPU (same weights, noise and pose).
+             path on the CPU (same weights, noise and pose);
+6. k2      — the ``backward_tiles`` kernel against its plain version on the
+             hand-made streams with seeded upstream gradients;
+7. train   — ``VAETrainer`` at the ``vae_b`` preset's full width (3D-conv
+             encoder 128/256/256/512 over 6 input views of 9 channels at
+             512^2, a 64x64 UV-query bottleneck of 6 layers of 8 x 64 heads,
+             a 16-channel latent, decoder to a 64-channel 512^2 UV map,
+             100,000 Gaussians, 10 supervised views at 512^2, LPIPS VGG16 at
+             256, bf16, per-block remat) on one synthetic item: 3 generator
+             steps and 1 discriminator step, launch counts zeroed before;
+8. k2 main — K2 against its plain version on the last generator step's own
+             pair stream and upstream gradients, with its time and bound;
+9. small train — one ``test_tiny`` generator step on the GPU against the
+             CPU (same weights, batch and noise, TF32 off): loss and
+             gradients.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs no network and one card; exits
@@ -56,13 +70,29 @@ H100_SFU_PER_S = H100_F32_FLOPS / 16
 K1_WORK = {"power_cut": (11, 0), "floor_cut": (14, 1),
            "contributing": (28, 1), "saturating": (19, 1)}
 K1_ROW_BYTES = 40               # the 10 live f32 of a pair row
+# (f32 operations, exps) of one (pair, pixel) evaluation of backward_tiles:
+# K1's alpha and transmittance work, and for a contributing pair, instead of
+# K1's 4 FMAs into rgb + depth: u (1 mul + 3 FMAs = 7), u w (1), prefix (1),
+# d_pow (clamp test, alpha / (1 - alpha), TOT - prefix, mul, sub: 5), the
+# centred moments (dx, dy, two products, S0 + Sx + Sy adds, 3 FMAs: 13) and
+# sum w g (4 FMAs: 8)
+K2_WORK = {"power_cut": (11, 0), "floor_cut": (14, 1),
+           "contributing": (55, 1), "saturating": (19, 1)}
 K1_TOL = 1e-4                   # kernel vs plain, rgb / depth / alpha rows
+# K2 vs plain: max |kernel - plain| per output column over the plain
+# column's max |value| (the columns span many decades)
+K2_TOL = 1e-4
 IMAGE_TOL = 1e-3                # image through the plain version
 SMALL_TOL = 1e-3                # test_tiny path, GPU vs CPU
+# test_tiny G step, GPU vs CPU: loss relative, gradient L2 relative
+SMALL_LOSS_TOL = 1e-4
+SMALL_GRAD_TOL = 1e-3
 DEVICE = "cuda"
 PRESET = "dit"
+TRAIN_PRESET = "vae_b"
 N_VERTS = 100_002               # -> 100,000 Gaussians (one per face)
 N_VIEWS = 4
+G_STEPS = 3
 
 
 def fail(msg: str):
@@ -140,6 +170,36 @@ def k1_diff(out, ref):
     return (out[:, :5] - ref[:, :5]).abs().max().item()
 
 
+def k2_diff(out, ref):
+    """(max |kernel - plain|, max over columns of that over the plain
+    column's max |value|)."""
+    d = (out - ref).abs()
+    scale = ref.abs().amax(dim=0) + 1e-30
+    return d.max().item(), (d.amax(dim=0) / scale).max().item()
+
+
+def grad_tiles(rng, n):
+    """Seeded upstream gradients [n, 8, 1024] (rows 5-7 unused: zero)."""
+    g = rng.normal(size=(n, 8, 1024)).astype(np.float32)
+    g[:, 5:] = 0.0
+    return g
+
+
+def bound_ms(work, prices, n_bytes):
+    """(bound ms, 'bytes' | 'operations', parts): the larger of the bytes
+    over the memory rate and the priced operations (the f32 pipes and the
+    special-function units run side by side, so the larger of the two)."""
+    f32_ops = sum(work[k] * prices[k][0] for k in prices)
+    exps = sum(work[k] * prices[k][1] for k in prices)
+    f32_ms = f32_ops / H100_F32_FLOPS * 1e3
+    sfu_ms = exps / H100_SFU_PER_S * 1e3
+    bound = {"bytes": n_bytes / H100_BYTES_PER_S * 1e3,
+             "operations": max(f32_ms, sfu_ms)}
+    by = max(bound, key=bound.get)
+    return bound[by], by, dict(bound, f32_ops=f32_ops, f32_ms=f32_ms,
+                               exps=exps, sfu_ms=sfu_ms)
+
+
 def seeded_pose(rng) -> np.ndarray:
     """A 188-d SMPL-X parameter vector (transl, orient, betas, body, expr,
     hands 45+45, jaw, eyes) with moderate joint rotations."""
@@ -162,6 +222,7 @@ def main():
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.inference import (
         AvatarPipeline, normalize_image, orbit_rig)
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer.render import (
         composite, finish, prepare_pairs)
@@ -175,7 +236,7 @@ def main():
 
     # ---- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    cuda_build.build([k1.SOURCE])
+    cuda_build.build([k1.SOURCE, k2.SOURCE])
     print(f"[build] {len(cuda_build.build_logs)} source(s) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in cuda_build.build_logs.items():
@@ -276,23 +337,15 @@ def main():
     n_out = tiles.numel() * 4
     bytes_moved = n_pairs * K1_ROW_BYTES + 8 * stream.tile_start.numel() \
         + n_out
-    f32_ops = sum(work[k] * K1_WORK[k][0] for k in K1_WORK)
-    exps = sum(work[k] * K1_WORK[k][1] for k in K1_WORK)
-    # the f32 pipes and the special-function units run side by side
-    f32_ms = f32_ops / H100_F32_FLOPS * 1e3
-    sfu_ms = exps / H100_SFU_PER_S * 1e3
-    bound = {"bytes": bytes_moved / H100_BYTES_PER_S * 1e3,
-             "operations": max(f32_ms, sfu_ms)}
-    bound_by = max(bound, key=bound.get)
+    k1_bound, k1_by, parts = bound_ms(work, K1_WORK, bytes_moved)
     print(f"[plain] main-path stream: {n_pairs} pairs in "
           f"{stream.tile_count.numel()} tiles; evaluations needed {work}; "
           f"max |kernel - plain| {k1_err:.3e}; image max diff {img_err:.3e}")
     print(f"[plain] forward_tiles {k1_ms:.4f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {bound[bound_by]:.4f} ms ({bound_by}; bytes "
-          f"{bound['bytes']:.4f} ms, f32 {f32_ops} ops {f32_ms:.4f} ms, "
-          f"exp {exps} {sfu_ms:.4f} ms; "
-          f"{100 * bound[bound_by] / k1_ms:.2f}% of the bound reached)",
-          flush=True)
+          f"bound {k1_bound:.4f} ms ({k1_by}; bytes {parts['bytes']:.4f} ms, "
+          f"f32 {parts['f32_ops']} ops {parts['f32_ms']:.4f} ms, "
+          f"exp {parts['exps']} {parts['sfu_ms']:.4f} ms; "
+          f"{100 * k1_bound / k1_ms:.2f}% of the bound reached)", flush=True)
     if not k1_err <= K1_TOL:
         fail(f"forward_tiles disagrees with its plain version on the main "
              f"path's stream: {k1_err}")
@@ -330,18 +383,39 @@ def main():
     if not small_err <= SMALL_TOL:
         fail(f"test_tiny path on the GPU differs from the CPU by {small_err}")
 
+    del pipe, res, render, stream, tiles, plain
+    torch.cuda.empty_cache()
+    train = train_phases(dev, body, template)
+
     kernels = [{
         "name": "forward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/forward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
-        "launches": launches,
+        "launches": launches + train["k1_launches"],
+        "launches_by_path": {"serve": launches,
+                             "train": train["k1_launches"]},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound[bound_by],
-        "bound_by": bound_by,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
+        "name": "backward_tiles",
+        "route": "cuda",
+        "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
+        "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
+        "launches": train["k2_launches"],
+        "launches_by_path": {"serve": 0, "train": train["k2_launches"]},
+        "max_abs_err": train["k2_err"],
+        "max_abs_diff": train["k2_err"],
+        "max_col_rel_err": train["k2_rel"],
+        "ms": train["k2_ms"],
+        "plain_ms": train["k2_plain_ms"],
+        "bound_ms": train["k2_bound"],
+        "bound_by": train["k2_by"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
@@ -349,6 +423,212 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def small_train_step_diff(dev):
+    """One ``test_tiny`` G step on ``dev`` and on the CPU from the same
+    weights, batch and noise, TF32 off, dropout off: (loss relative
+    difference, gradient relative L2 difference). With two accumulation
+    micro-steps the first leaves its gradients in place."""
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.training.vae_trainer import VAETrainer
+
+    cfg = PRESETS["test_tiny"].replace(gradient_accumulation_steps=2,
+                                       attn_dropout=0.0)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cpu = VAETrainer(cfg, device="cpu")
+        gpu = VAETrainer(cfg, device=dev)
+        gpu.load_state_dicts(vae=cpu.vae.state_dict(),
+                             disc=cpu.disc.state_dict(),
+                             lpips=cpu.lpips.state_dict())
+        item = SyntheticAvatarDataset(cfg, n_items=1)[0]
+        raw = {k: v[None] for k, v in item.items() if k != "item"}
+        noise = torch.from_numpy(np.random.default_rng(2).normal(
+            size=(1, cfg.uv_query_size, cfg.uv_query_size,
+                  cfg.latent_channels)).astype(np.float32))
+        lc = cpu.train_step_g(cpu.to_device(raw), noise)["loss"].item()
+        lg = gpu.train_step_g(gpu.to_device(raw), noise.to(dev))[
+            "loss"].item()
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    gc = torch.cat([p.grad.flatten() for p in cpu.params_g])
+    gg = torch.cat([p.grad.flatten() for p in gpu.params_g]).cpu()
+    return abs(lg - lc) / abs(lc), ((gg - gc).norm() / gc.norm()).item()
+
+
+def train_phases(dev, body, template):
+    """Phases 6-9; returns the numbers the kernels line needs."""
+    import statistics
+
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.training.vae_trainer import synthetic_setup
+    from sigman_release_torch.utils.timing import StageTimer
+
+    # ---- 6. K2 on hand-made streams -------------------------------------------
+    rng = np.random.default_rng(1)
+    pairs, start, count = hand_streams(rng)
+    args = tuple(torch.from_numpy(a).to(dev) for a in (pairs, start, count))
+    kw = dict(ntx=2, tiles_per_view=4, chunk=128)
+    fwd = k1.forward_tiles(*args, **kw)
+    grad = torch.from_numpy(grad_tiles(rng, start.shape[0])).to(dev)
+    out = k2.backward_tiles(*args, fwd, grad, **kw)
+    ref = k2.backward_tiles_plain(*args, fwd, grad, **kw)
+    torch.cuda.synchronize()
+    hand_abs, hand_rel = k2_diff(out, ref)
+    print(f"[k2] hand-made streams: max |kernel - plain| {hand_abs:.3e}, "
+          f"per-column relative {hand_rel:.3e}", flush=True)
+    if not hand_rel <= K2_TOL:
+        fail(f"backward_tiles disagrees with its plain version: {hand_rel}")
+    sat_end = int(start[2]) + int(count[2])
+    if not (out[sat_end - 5:sat_end] == 0).all() or not (out[:, 10:] == 0).all():
+        fail("backward_tiles wrote rows past saturation or padding columns")
+    if not out[int(start[3])].abs().max().item() > 0:
+        fail("backward_tiles gave no gradient to the Gaussian on a pixel")
+
+    # ---- 7. vae_b training steps at full width ----------------------------------
+    cfg = PRESETS[TRAIN_PRESET]
+    t0 = time.perf_counter()
+    trainer, batch = synthetic_setup(cfg, device=dev, body_model=body,
+                                     template=template)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in trainer.vae.parameters())
+    print(f"[train] set-up {time.perf_counter() - t0:.1f} s: "
+          f"{template.num_gaussians} Gaussians, VAE {n_params / 1e6:.1f} M "
+          f"params, input {tuple(batch['input'].shape)}, "
+          f"{cfg.num_views} views at {cfg.output_size}^2, "
+          f"{cfg.mixed_precision}, remat {cfg.remat_policy}", flush=True)
+    ae = trainer.vae.autoencoder
+    watch = {"encoder.conv_in": ae.encoder.conv_in.weight,
+             "bottleneck.projection": ae.projection.weight,
+             "decoder.conv_out": ae.decoder.conv_out.weight,
+             "heads.geo": trainer.vae.heads.decode_gaussian_geo.weight}
+    before = {n: w.detach().clone() for n, w in watch.items()}
+    captured = {}
+    real_backward = render_lib.backward_tiles
+
+    def capturing_backward(*a, **kw):      # keeps the last step's K2 inputs
+        captured.update(args=a, kw=kw)
+        return real_backward(*a, **kw)
+
+    render_lib.backward_tiles = capturing_backward
+    torch.cuda.reset_peak_memory_stats()
+    k1.forward_tiles.launches = 0
+    k2.backward_tiles.launches = 0
+    step_ms, spans = [], []
+    try:
+        for i in range(G_STEPS):
+            timer = StageTimer(dev)
+            c1, c2 = k1.forward_tiles.launches, k2.backward_tiles.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = trainer.train_step_g(batch, timer=timer)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            spans.append(timer.seconds)
+            logs = {k: float(v) for k, v in logs.items()}
+            n1 = k1.forward_tiles.launches - c1
+            n2 = k2.backward_tiles.launches - c2
+            print(f"[train] G step {i + 1}: {step_ms[-1]:.1f} ms, K1 "
+                  f"launches {n1}, K2 launches {n2}, logs {logs}", flush=True)
+            if n1 < 1 or n2 < 1:
+                fail(f"G step {i + 1} did not launch both kernels ({n1}, {n2})")
+            if not all(np.isfinite(v) for v in logs.values()):
+                fail(f"non-finite loss in G step {i + 1}: {logs}")
+        snap = [p.detach().clone() for p in trainer.params_g]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dlogs = trainer.train_step_d(batch)
+        torch.cuda.synchronize()
+        d_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        render_lib.backward_tiles = real_backward
+    k1_train, k2_train = k1.forward_tiles.launches, k2.backward_tiles.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    dlogs = {k: float(v) for k, v in dlogs.items()}
+    med = statistics.median(step_ms[1:])
+    last = spans[-1]
+    total = step_ms[-1] / 1e3
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)"
+                       for k, v in last.items())
+    print(f"[train] G step median of steps 2-{G_STEPS}: {med:.1f} ms; step "
+          f"{G_STEPS} spans: {stages}")
+    print(f"[train] D step {d_ms:.1f} ms, logs {dlogs}; peak memory "
+          f"{peak:.2f} GiB; launches K1 {k1_train}, K2 {k2_train}; overflow "
+          f"{logs['overflow']:.0f}", flush=True)
+    for n, w in watch.items():
+        if torch.equal(w.detach(), before[n]):
+            fail(f"the G steps did not move {n}")
+    if not all(torch.equal(p.detach(), q)
+               for p, q in zip(trainer.params_g, snap)):
+        fail("the D step changed the VAE parameters")
+    if not all(np.isfinite(v) for v in dlogs.values()):
+        fail(f"non-finite D loss: {dlogs}")
+    del snap, before
+
+    # ---- 8. K2 on the training step's own stream -----------------------------
+    a, kw = captured["args"], captured["kw"]
+    pairs8, ts8, tc8 = a[:3]
+    with torch.no_grad():
+        out = k2.backward_tiles(*a, **kw)
+        work = {}
+        t0 = time.perf_counter()
+        ref = k2.backward_tiles_plain(*a, work=work, **kw)
+        torch.cuda.synchronize()
+        k2_plain_ms = (time.perf_counter() - t0) * 1e3
+        k2_err, k2_rel = k2_diff(out, ref)
+        del out, ref
+        k2_ms = cuda_ms(lambda: k2.backward_tiles(*a, **kw), reps=20)
+    n_pairs, n_tiles = int(tc8.sum()), ts8.numel()
+    # the kernel's own traffic: live pair rows read once and their 10 live
+    # gradient columns written once; forward rows 0-3, 5 and gradient rows
+    # 0-4 of every tile and the segment arrays read once. The wrapper's
+    # zero fill of the whole [budget, 16] output is not the kernel's work:
+    # it is printed beside the bound, not in it.
+    n_bytes = (2 * n_pairs * K1_ROW_BYTES + n_tiles * 10 * 1024 * 4
+               + 8 * n_tiles)
+    fill_ms = pairs8.numel() * 4 / H100_BYTES_PER_S * 1e3
+    k2_bound, k2_by, parts = bound_ms(work, K2_WORK, n_bytes)
+    print(f"[k2 main] stream: {n_pairs} pairs in {n_tiles} tiles (budget "
+          f"{pairs8.shape[0]}); evaluations needed {work}; max |kernel - "
+          f"plain| {k2_err:.3e}, per-column relative {k2_rel:.3e}")
+    print(f"[k2 main] backward_tiles {k2_ms:.4f} ms, plain {k2_plain_ms:.1f} "
+          f"ms, bound {k2_bound:.4f} ms ({k2_by}; bytes {parts['bytes']:.4f} "
+          f"ms, f32 {parts['f32_ops']} ops {parts['f32_ms']:.4f} ms, exp "
+          f"{parts['exps']} {parts['sfu_ms']:.4f} ms; "
+          f"{100 * k2_bound / k2_ms:.2f}% of the bound reached); the "
+          f"wrapper's zero fill of the {pairs8.numel() * 4 / 1e6:.0f} MB "
+          f"output, outside the bound, takes at least {fill_ms:.4f} ms",
+          flush=True)
+    if not k2_rel <= K2_TOL:
+        fail(f"backward_tiles disagrees with its plain version on the "
+             f"training stream: {k2_rel}")
+    del trainer, batch, captured, a
+    torch.cuda.empty_cache()
+
+    # ---- 9. test_tiny G step on the GPU against the CPU ---------------------
+    loss_rel, grad_rel = small_train_step_diff(dev)
+    print(f"[small train] test_tiny G step GPU vs CPU: loss relative "
+          f"{loss_rel:.3e}, gradient relative L2 {grad_rel:.3e}", flush=True)
+    if not loss_rel <= SMALL_LOSS_TOL or not grad_rel <= SMALL_GRAD_TOL:
+        fail(f"test_tiny G step on the GPU differs from the CPU: loss "
+             f"{loss_rel}, gradient {grad_rel}")
+    return {"k1_launches": k1_train, "k2_launches": k2_train,
+            "k2_err": k2_err, "k2_rel": k2_rel, "k2_ms": k2_ms,
+            "k2_plain_ms": k2_plain_ms, "k2_bound": k2_bound,
+            "k2_by": k2_by}
 
 
 if __name__ == "__main__":

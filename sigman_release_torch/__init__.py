@@ -7,16 +7,22 @@ module:
   config.py     Config + PRESETS (own copy)
   geometry/     camera matrices (own numpy copy)
   ops/          rotations, grid sampling, KNN, and the tile rasterizer:
-                projection, binning, the CUDA ``forward_tiles`` kernel
-                (``ops/rasterizer/csrc/forward_tiles.cu``) and its plain
-                PyTorch version
+                projection, binning, the dense oracle, the CUDA kernels
+                ``forward_tiles`` and ``backward_tiles``
+                (``ops/rasterizer/csrc/*.cu``) with their plain PyTorch
+                versions, one autograd Function around them
   body/         SMPL-X, LBS, template assets, Gaussian deformer
-  models/       VAE decoder + Gaussian heads, DiT, ViT conditioning encoder
+  models/       VAE (encoder, bottleneck, decoder, heads), DiT, ViT encoder
   diffusion/    DDIM scheduler and the CFG sampling loop
+  losses/       L1 + LPIPS + KL + hinge GAN, PSNR / SSIM
+  data/         synthetic avatar dataset, augmentation, loader
+  training/     VAETrainer (G/D steps, AdamW), step profiler
   renderer.py   GaussianRenderer (KNN base scale -> covariance -> rasterize)
   convert.py    Flax parameter trees -> this package's state_dicts
   inference.py  image -> avatar entry point (``python -m
                 sigman_release_torch.inference``)
+  train_vae.py  VAE training entry point (``python -m
+                sigman_release_torch.train_vae``)
 
 The package imports neither JAX nor anything of the JAX package.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they

@@ -189,3 +189,52 @@ PRESETS = {
                         batch_size=1, synthetic_data=True,
                         mixed_precision="no"),
 }
+
+
+def parse_cli(argv: Optional[list] = None, default_preset: str = "vae_b",
+              device: str = "cuda") -> Tuple[Config, str]:
+    """``prog [preset] --flag value ... [--device d]`` -> (Config, device)
+    (the reference CLI's shape, ``train_vae.py vae_b --batch_size 8``).
+    Values are parsed with the field's type; ``--device`` defaults to
+    ``device``."""
+    import sys
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    preset = default_preset
+    if argv and not argv[0].startswith("-"):
+        preset = argv.pop(0)
+    if preset not in PRESETS:
+        raise SystemExit(f"unknown preset {preset!r}; choose from "
+                         f"{sorted(PRESETS)}")
+    cfg = PRESETS[preset]
+    fields = {f.name: f for f in dataclasses.fields(Config)}
+    overrides = {}
+    for i in range(0, len(argv), 2):
+        arg = argv[i]
+        if not arg.startswith("--"):
+            raise SystemExit(f"unexpected argument {arg!r}")
+        name = arg[2:].replace("-", "_")
+        if name != "device" and name not in fields:
+            raise SystemExit(f"unknown flag --{name}")
+        if i + 1 >= len(argv):
+            raise SystemExit(f"--{name} needs a value")
+        raw = argv[i + 1]
+        if name == "device":
+            device = raw
+        else:
+            overrides[name] = _coerce(raw, fields[name].type,
+                                      getattr(cfg, name))
+    return cfg.replace(**overrides), device
+
+
+def _coerce(raw: str, annot, current):
+    if isinstance(current, bool) or annot in ("bool", bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int) and not isinstance(current, bool):
+        return int(raw)
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, tuple):
+        elem = type(current[0]) if current else int
+        return tuple(elem(x) for x in raw.strip("()").split(","))
+    return raw

@@ -2,9 +2,10 @@
 
 Takes the JAX package's parameter trees as nested dicts of numpy arrays (for
 example ``np.asarray`` mapped over each leaf) and returns ``state_dict``s for
-the VAE decoder + Gaussian heads, the DiT and the ViT conditioning encoder:
+the VAE (decode side alone, or encoder + bottleneck + decoder + heads), the
+DiT, the ViT conditioning encoder, LPIPS and the PatchGAN discriminator:
 
-* conv kernels HWIO -> OIHW,
+* conv kernels HWIO -> OIHW, 3D conv kernels DHWIO -> OIDHW,
 * Dense kernels ``[in, out]`` -> Linear weights ``[out, in]``,
 * Flax multi-head attention kernels ``[d, heads, hd]`` / ``[heads, hd, d]``
   -> Linear weights ``[heads*hd, d]`` / ``[d, heads*hd]``,
@@ -27,6 +28,10 @@ KeyMap = Dict[str, Tuple[Tuple[str, ...], Callable]]
 
 def _conv(w):
     return np.asarray(w).transpose(3, 2, 0, 1)
+
+
+def _conv3d(w):
+    return np.asarray(w).transpose(4, 3, 0, 1, 2)
 
 
 def _dense(w):
@@ -53,9 +58,11 @@ def _flat(b):
     return np.asarray(b).reshape(-1)
 
 
-def _conv_entry(m: KeyMap, key: str, path: tuple):
-    m[f"{key}.weight"] = (path + ("kernel",), _conv)
-    m[f"{key}.bias"] = (path + ("bias",), _same)
+def _conv_entry(m: KeyMap, key: str, path: tuple, bias: bool = True,
+                tfm=_conv):
+    m[f"{key}.weight"] = (path + ("kernel",), tfm)
+    if bias:
+        m[f"{key}.bias"] = (path + ("bias",), _same)
 
 
 def _dense_entry(m: KeyMap, key: str, path: tuple, bias: bool = True):
@@ -96,6 +103,82 @@ def vae_decode_key_map(cfg) -> KeyMap:
     _conv_entry(m, f"{pre}.conv_out", dec + ("conv_out",))
     for head in ("decode_gaussian_geo", "decode_gaussian_rgb"):
         _conv_entry(m, f"heads.{head}", ("params", "heads", head))
+    return m
+
+
+def _attn_entries(m: KeyMap, key: str, path: tuple, cross: bool):
+    _norm_entry(m, f"{key}.group_norm", path + ("group_norm",))
+    if cross:
+        _norm_entry(m, f"{key}.norm_cross", path + ("norm_cross",))
+    for n in ("to_q", "to_k", "to_v"):
+        _dense_entry(m, f"{key}.{n}", path + (n,), bias=False)
+    for n in ("norm_q", "norm_k"):
+        _norm_entry(m, f"{key}.{n}", path + (n,))
+    _dense_entry(m, f"{key}.to_out", path + ("to_out",))
+
+
+def vae_key_map(cfg) -> KeyMap:
+    """Port ``VAEModel`` keys -> Flax ``VAEModel`` paths (whole model)."""
+    m = vae_decode_key_map(cfg)
+    ae = ("params", "autoencoder")
+    enc = ae + ("encoder",)
+    pre = "autoencoder.encoder"
+    _conv_entry(m, f"{pre}.conv_in", enc + ("conv_in",), tfm=_conv3d)
+    prev = cfg.encoder_channels[0]
+    for i, ch in enumerate(cfg.encoder_channels):
+        for j in range(2):                     # layers_per_block
+            t = f"{pre}.down_blocks.{i}.resnets.{j}"
+            f = enc + (f"down_blocks_{i}_resnets_{j}",)
+            _norm_entry(m, f"{t}.norm1", f + ("norm1",))
+            _conv_entry(m, f"{t}.conv1", f + ("conv1",), tfm=_conv3d)
+            _norm_entry(m, f"{t}.norm2", f + ("norm2",))
+            _conv_entry(m, f"{t}.conv2", f + ("conv2",), tfm=_conv3d)
+            if (prev if j == 0 else ch) != ch:
+                _conv_entry(m, f"{t}.conv_shortcut", f + ("conv_shortcut",),
+                            tfm=_conv3d)
+        if i < len(cfg.encoder_channels) - 1:
+            _conv_entry(m, f"{pre}.down_blocks.{i}.downsamplers.0.conv",
+                        enc + (f"down_blocks_{i}_downsamplers_0", "conv"))
+        prev = ch
+    m["autoencoder.uv_latent"] = (ae + ("uv_latent",), _same)
+    _conv_entry(m, "autoencoder.uv_encoding.0", ae + ("uv_encoding_0",))
+    _norm_entry(m, "autoencoder.uv_encoding.1", ae + ("uv_encoding_1",))
+    _attn_entries(m, "autoencoder.attention.cross_attn",
+                  ae + ("attention_cross_attn",), cross=True)
+    for i in range(cfg.self_attention_layers):
+        t = f"autoencoder.attention.middle_layers.{i}"
+        f = ae + (f"attention_middle_layers_{i}",)
+        _attn_entries(m, f"{t}.attn", f + ("attn",), cross=False)
+        _conv_entry(m, f"{t}.conv", f + ("conv",))
+        _norm_entry(m, f"{t}.norm", f + ("norm",))
+    _dense_entry(m, "autoencoder.projection", ae + ("projection",))
+    return m
+
+
+def lpips_key_map() -> KeyMap:
+    """Port ``LPIPS`` keys -> Flax ``LPIPS`` (VGG) paths."""
+    from sigman_release_torch.losses.lpips import VGG_CONVS
+
+    m: KeyMap = {}
+    p = ("params",)
+    for bi, n in enumerate(VGG_CONVS):
+        for ci in range(n):
+            _conv_entry(m, f"vgg.conv{bi}_{ci}", p + ("vgg", f"conv{bi}_{ci}"))
+    for i in range(len(VGG_CONVS)):
+        _conv_entry(m, f"lins.{i}", p + (f"lin{i}",), bias=False)
+    return m
+
+
+def disc_key_map(n_layers: int) -> KeyMap:
+    """Port ``PatchDiscriminator`` keys -> Flax auto-named paths."""
+    m: KeyMap = {}
+    p = ("params",)
+    for k in range(n_layers + 2):
+        # first and last convs carry a bias; the normed ones do not
+        _conv_entry(m, f"convs.{k}", p + (f"Conv_{k}",),
+                    bias=k in (0, n_layers + 1))
+    for k in range(n_layers):
+        _norm_entry(m, f"norms.{k}", p + (f"GroupNorm_{k}",))
     return m
 
 
@@ -193,3 +276,15 @@ def convert_dit(tree, module, cfg):
 
 def convert_vit(tree, module):
     return convert(tree, module, vit_key_map(len(module.blocks)))
+
+
+def convert_vae(tree, module, cfg):
+    return convert(tree, module, vae_key_map(cfg))
+
+
+def convert_lpips(tree, module):
+    return convert(tree, module, lpips_key_map())
+
+
+def convert_disc(tree, module):
+    return convert(tree, module, disc_key_map(len(module.norms)))

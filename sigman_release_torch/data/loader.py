@@ -1,0 +1,84 @@
+"""Batching with thread-pool prefetch, and the per-process item split
+(port of the JAX package's ``data/loader.py``). Batches are dicts of numpy
+arrays; each epoch's shuffle draws from a ``torch.Generator`` seeded with
+``seed + epoch``; the last partial batch is dropped; two batches are
+fetched ahead."""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, Sequence
+
+import numpy as np
+import torch
+
+
+def shard_for_host(items: Sequence, rank: int, world_size: int) -> list:
+    """Strided split of the item list across processes."""
+    return list(items)[rank::world_size]
+
+
+def _collate(samples) -> Dict[str, np.ndarray]:
+    out = {}
+    for k in samples[0]:
+        if k == "item":
+            out[k] = [s[k] for s in samples]
+        else:
+            out[k] = np.stack([s[k] for s in samples])
+    return out
+
+
+class DataLoader:
+    """Thread-pool prefetching loader over a map-style dataset."""
+
+    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
+                 seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        g = torch.Generator().manual_seed(self.seed + self.epoch)
+        order = torch.randperm(len(self.dataset), generator=g).numpy()
+        self.epoch += 1
+        batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(len(self))]
+        q: "queue.Queue" = queue.Queue(maxsize=2)
+        stop = threading.Event()
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+
+        def producer():
+            try:
+                for idxs in batches:
+                    if stop.is_set():
+                        return
+                    q.put(_collate(list(pool.map(
+                        lambda i: self.dataset[int(i)], idxs))))
+            finally:
+                q.put(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            stop.set()
+            # unblock a producer waiting on a full queue, then wait for it
+            while t.is_alive():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+                t.join(timeout=0.1)
+            pool.shutdown(wait=True)

@@ -174,7 +174,7 @@ class AvatarPipeline:
             g = torch.Generator(device=dev).manual_seed(seed + offset)
             return random_weights_(module, g).eval()
 
-        self.vae = build(lambda: VAEModel(cfg), 0)
+        self.vae = build(lambda: VAEModel(cfg, with_encoder=False), 0)
         g = torch.Generator(device=dev).manual_seed(seed + 3)
         random_weights_(self.vae.heads, g, std=HEAD_INIT_STD)
         self.encoder = build(

@@ -1,4 +1,4 @@
-"""Tile binning for the tile rasterizer: all views, one sort (forward half).
+"""Tile binning for the tile rasterizer: all views, one sort.
 
 Port of the JAX package's ``ops/rasterizer/binning.py`` (``bin_gaussians``
 and ``place_pairs``):
@@ -110,16 +110,23 @@ def place_pairs(feats16, feats_big, valid_prefix, pay_prefix, dims):
 
     Each slot's candidate index encodes its feats row by construction
     (A-window: ``pay // a_slots``; B-window: ``V*N + (pay - c_a) // b_slots``
-    into the appended pool copy); empty / clipped slots take a zero row.
+    into the appended pool copy); empty / clipped slots hold zeros.
+
+    Only the live slots are gathered. The gather's VJP is the pair ->
+    Gaussian scatter-add (autograd's sorted ``index_put`` accumulate); had
+    the empty slots gathered one shared zero row, that row would take ~90%
+    of the budget's indices as duplicates, which the accumulate adds one
+    after another (3.2 s of a 4.0 s ``vae_b`` step on an H100, PERF.md).
     """
     v, n, k_big, a_slots, b_slots, budget, vb = dims
     c_a = v * n * a_slots
-    zrow = feats16.new_zeros((1, feats16.shape[1]))
-    rows = torch.where(pay_prefix < c_a, pay_prefix // a_slots,
-                       v * n + (pay_prefix - c_a) // b_slots)
-    idx = torch.where(valid_prefix, rows, v * (n + k_big))
-    src = torch.cat([feats16, feats_big, zrow])
-    return src[idx]
+    slots = torch.nonzero(valid_prefix).squeeze(1)
+    pay = pay_prefix[slots]
+    rows = torch.where(pay < c_a, pay // a_slots,
+                       v * n + (pay - c_a) // b_slots)
+    src = torch.cat([feats16, feats_big])
+    out = feats16.new_zeros((budget, feats16.shape[1]))
+    return out.index_put((slots,), src[rows])
 
 
 def bin_gaussians(
@@ -141,6 +148,11 @@ def bin_gaussians(
     a view needing more than its region is clipped and counted."""
     if proj.mean2d.ndim != 3:
         raise ValueError("bin_gaussians wants view-batched projections")
+    # gradients reach only the pair rows (feats16); spans, culling and sort
+    # keys work on detached copies, so autograd records none of them
+    proj_g, opacity_g = proj, opacity
+    proj = ProjectedGaussians(*(x.detach() for x in proj))
+    opacity = opacity.detach()
     dev = proj.mean2d.device
     i32, i64 = torch.int32, torch.int64
     v_views, n = proj.mean2d.shape[:2]
@@ -316,14 +328,16 @@ def bin_gaussians(
         tile_start = torch.clamp(starts, max=budget)
         tile_count = torch.clamp(ends, max=budget) - tile_start
 
-    # ---- pair feature rows ----------------------------------------------------
-    opab = torch.where(valid, opacity[None], 0.0)
+    # ---- pair feature rows (differentiable) ----------------------------------
+    opab = torch.where(valid, opacity_g[None], 0.0)
     zero = torch.zeros_like(proj.depth)
     colb = colors[None].expand(v_views, n, 3)
+    conic = proj_g.conic
     feats16 = torch.stack(
-        [mean_x, mean_y, ca_f, cb_f, cc_f,
+        [proj_g.mean2d[..., 0], proj_g.mean2d[..., 1],
+         conic[..., 0], conic[..., 1], conic[..., 2],
          colb[..., 0], colb[..., 1], colb[..., 2],
-         opab, proj.depth,
+         opab, proj_g.depth,
          zero, zero, zero, zero, zero, zero],
         dim=-1,
     ).to(torch.float32).reshape(v_views * n, PAIR_FEATS)    # [V*N,16]

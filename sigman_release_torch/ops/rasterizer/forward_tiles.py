@@ -78,9 +78,6 @@ def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
         raise ValueError("forward_tiles needs contiguous inputs")
     if pairs.data_ptr() % 16:
         raise ValueError("pairs must be 16-byte aligned")
-    if pairs.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("forward_tiles has no backward kernel yet; call it "
-                           "under torch.no_grad()")
     out = torch.empty((n, 8, TILE * TILE), dtype=torch.float32,
                       device=pairs.device)
     lib = _library()
@@ -134,6 +131,39 @@ def _alpha(feats, ox, oy, basis, row_ok):
     return alpha, power_ok
 
 
+def pixel_frame(n, tiles_per_view, ntx, dev):
+    """Tile origins ox/oy [n,1] and the tile-local pixel basis
+    [6, TILE^2] = (1, X, Y, X^2, XY, Y^2)."""
+    tv = torch.arange(n, device=dev) % tiles_per_view
+    ox = ((tv % ntx) * TILE).to(torch.float32)[:, None]
+    oy = ((tv // ntx) * TILE).to(torch.float32)[:, None]
+    pix = torch.arange(TILE * TILE, device=dev)
+    X = (pix % TILE).to(torch.float32)
+    Y = (pix // TILE).to(torch.float32)
+    return ox, oy, torch.stack([torch.ones_like(X), X, Y, X * X, X * Y, Y * Y])
+
+
+def segment_chunks(tile_start, tile_count, chunk):
+    """Each segment on the JAX package's global chunk grid: first chunk,
+    offset into it and number of chunks touched (0 for an empty segment)."""
+    start = tile_start.to(torch.int64)
+    count = tile_count.to(torch.int64)
+    off = start % chunk
+    n_chunks = torch.where(count > 0, -(-(off + count) // chunk), 0)
+    return start // chunk, off, count, n_chunks
+
+
+def work_counts(row_ok, t_excl, power_ok, alpha, contrib):
+    """Per-class counts (``WORK_CLASSES``) of one chunk step's (pair, pixel)
+    evaluations at pixels not yet saturated."""
+    needed = row_ok[..., None] & (t_excl >= T_EPS)
+    hit = needed & (alpha > 0)
+    return torch.stack([(needed & ~power_ok).sum(),
+                        (needed & power_ok & (alpha == 0)).sum(),
+                        (hit & contrib).sum(),
+                        (hit & ~contrib).sum()])
+
+
 # classes of the (pair, pixel) evaluations the kernel makes at pixels not yet
 # saturated, by how far down its inner loop each one runs
 WORK_CLASSES = ("power_cut", "floor_cut", "contributing", "saturating")
@@ -158,19 +188,9 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
     dev = pairs.device
     n = tile_start.shape[0]
     npx = TILE * TILE
-    tv = torch.arange(n, device=dev) % tiles_per_view
-    ox = ((tv % ntx) * TILE).to(torch.float32)[:, None]
-    oy = ((tv // ntx) * TILE).to(torch.float32)[:, None]
-    pix = torch.arange(npx, device=dev)
-    X = (pix % TILE).to(torch.float32)
-    Y = (pix // TILE).to(torch.float32)
-    basis = torch.stack([torch.ones_like(X), X, Y, X * X, X * Y, Y * Y])
-
-    start = tile_start.to(torch.int64)
-    count = tile_count.to(torch.int64)
-    chunk0 = start // chunk
-    off = start % chunk
-    n_chunks = torch.where(count > 0, -(-(off + count) // chunk), 0)
+    ox, oy, basis = pixel_frame(n, tiles_per_view, ntx, dev)
+    chunk0, off, count, n_chunks = segment_chunks(tile_start, tile_count,
+                                                  chunk)
     row = torch.arange(chunk, device=dev)
     last = max(pairs.shape[0] - 1, 0)
 
@@ -202,13 +222,8 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
             cols = feats[..., [F_R, F_R + 1, F_R + 2, F_DEPTH]]   # [a,K,4]
             acc[act] += torch.einsum("akf,akp->afp", cols, w)
             if work is not None:
-                needed = row_ok[..., None] & (t_excl >= T_EPS)
-                hit = needed & (alpha > 0)
-                counts += torch.stack([
-                    (needed & ~power_ok).sum(),
-                    (needed & power_ok & (alpha == 0)).sum(),
-                    (hit & contrib).sum(),
-                    (hit & ~contrib).sum()])
+                counts += work_counts(row_ok, t_excl, power_ok, alpha,
+                                      contrib)
             Tf[act] = t_incl[:, -1:]
             Tr[act] = torch.minimum(
                 Tr[act],

@@ -1,10 +1,17 @@
 """Rasterizer API: projection -> binning -> placement -> K1 -> assembly.
 
-Port of the JAX package's ``ops/rasterizer/render.py`` (forward half).
-``rasterize_single`` renders one Gaussian set from V cameras through one
-binning of all views and one ``forward_tiles`` launch over every
-(view, tile). Serving takes no gradient, so the compositing stage has no
-autograd rule yet: ``forward_tiles`` raises on a tensor that requires grad.
+Port of the JAX package's ``ops/rasterizer/render.py``. ``rasterize_single``
+renders one Gaussian set from V cameras through one binning of all views and
+one ``forward_tiles`` launch over every (view, tile).
+
+Differentiation: projection, binning and placement are plain PyTorch
+(autograd); only compositing carries its own rule, :class:`Composite`,
+whose forward is K1 and whose backward is K2 (``backward_tiles``). Its
+boundary is the dense ``[budget, 16]`` pair stream, so autograd carries
+d(stream) back through ``place_pairs``' gather of pair rows: the VJP of that
+gather is the pair -> Gaussian scatter-add the JAX package builds by hand
+(``regroup_pair_grads``). The gradient stream is f32 (the JAX package's
+``grad_stream_bf16=False``).
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from sigman_release_torch.ops.rasterizer import binning as binning_lib
+from sigman_release_torch.ops.rasterizer.backward_tiles import backward_tiles
 from sigman_release_torch.ops.rasterizer.forward_tiles import TILE, forward_tiles
 from sigman_release_torch.ops.rasterizer.preprocess import project_gaussians
 from sigman_release_torch.utils.timing import NULL_TIMER
@@ -83,11 +91,37 @@ def prepare_pairs(means3d, cov3d, colors, opacity, cam_view, cam_view_proj,
                       bins.overflow)
 
 
+class Composite(torch.autograd.Function):
+    """Tile compositing with its analytic VJP: forward K1, backward K2.
+
+    Takes the pair stream and its segments; saves the stream, the segments
+    and the tile buffers; returns d(stream) (segments take no gradient).
+    """
+
+    @staticmethod
+    def forward(ctx, pairs, tile_start, tile_count, ntx, tiles_per_view,
+                chunk):
+        tiles = forward_tiles(pairs, tile_start, tile_count, ntx=ntx,
+                              tiles_per_view=tiles_per_view, chunk=chunk)
+        ctx.save_for_backward(pairs, tile_start, tile_count, tiles)
+        ctx.layout = (ntx, tiles_per_view, chunk)
+        return tiles
+
+    @staticmethod
+    def backward(ctx, g_tiles):
+        pairs, tile_start, tile_count, tiles = ctx.saved_tensors
+        ntx, tiles_per_view, chunk = ctx.layout
+        d_pairs = backward_tiles(pairs, tile_start, tile_count, tiles,
+                                 g_tiles.contiguous(), ntx=ntx,
+                                 tiles_per_view=tiles_per_view, chunk=chunk)
+        return d_pairs, None, None, None, None, None
+
+
 def composite(stream: PairStream, cfg: RasterizeConfig) -> torch.Tensor:
-    """K1 over every (view, tile) of the stream -> [V*n_tiles, 8, TILE^2]."""
-    return forward_tiles(stream.pairs, stream.tile_start, stream.tile_count,
-                         ntx=cfg.ntx, tiles_per_view=cfg.n_tiles,
-                         chunk=cfg.chunk)
+    """K1 over every (view, tile) of the stream -> [V*n_tiles, 8, TILE^2];
+    differentiable w.r.t. ``stream.pairs`` through K2."""
+    return Composite.apply(stream.pairs, stream.tile_start, stream.tile_count,
+                           cfg.ntx, cfg.n_tiles, cfg.chunk)
 
 
 def finish(tiles, overflow, V: int, bg_color, cfg: RasterizeConfig):
@@ -116,7 +150,8 @@ def rasterize_single(
     """Render one Gaussian set from V cameras. Returns dict of [V,...] maps.
 
     ``timer`` receives the "binning" (projection, binning, placement) and
-    "forward_tiles" stages.
+    "forward_tiles" stages (forward only; the backward runs when autograd
+    reaches it).
     """
     with timer("binning"):
         stream = prepare_pairs(means3d, cov3d, colors, opacity, cam_view,

@@ -2,7 +2,8 @@
 ``GaussianRenderer.render``).
 
 * per-Gaussian base scale from the detached mean 3-NN distance
-  (``ops/knn.mean_knn_dist2``, the reference's ``distCUDA2``),
+  (``ops/knn.mean_knn_dist2``, the reference's ``distCUDA2``): only it runs
+  under ``torch.no_grad()``, everything else is differentiable,
 * ``scale = (pred + 1) * sqrt(dist2)``, covariance R diag(s^2) R^T,
 * white background default, [B,V] camera batches, f32 geometry whatever the
   network's dtype,
@@ -41,7 +42,6 @@ class GaussianRenderer:
                         math.isqrt(cfg.max_tiles_per_gaussian)),
         )
 
-    @torch.no_grad()
     def prepare(self, gaussians: Dict[str, torch.Tensor]):
         """Network outputs -> f32 (position, cov3d, rgb, opacity) [B,N,...].
 
@@ -56,12 +56,12 @@ class GaussianRenderer:
         if opacity.ndim == 3:
             opacity = opacity[..., 0]
         rot = gaussians.get("cov3d", gaussians.get("rot")).to(f32)
-        dist2 = torch.stack([mean_knn_dist2(p) for p in pos])
+        with torch.no_grad():
+            dist2 = torch.stack([mean_knn_dist2(p) for p in pos])
         base = torch.sqrt(torch.clamp(dist2, min=1e-7))[..., None]
         cov3d = build_cov3d((gaussians["scale"].to(f32) + 1.0) * base, rot)
         return pos, cov3d, gaussians["rgb"].to(f32), opacity
 
-    @torch.no_grad()
     def render(
         self,
         gaussians: Dict[str, torch.Tensor],

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card (``cuda``-marked; skipped without one).
+"""The port's CUDA kernels on the card (``cuda``-marked; skipped without one).
 
 This file imports neither JAX nor the JAX package, so it also runs where
 only PyTorch and the CUDA toolkit are installed:
@@ -6,14 +6,16 @@ only PyTorch and the CUDA toolkit are installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The CPU tests hold the kernel's plain version against the JAX package; here
-the kernel is held against the plain version.
+the kernels are held against their plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import hand_streams
+from chip_smoke import (K2_TOL, SMALL_GRAD_TOL, SMALL_LOSS_TOL, grad_tiles,
+                        hand_streams, k2_diff, small_train_step_diff)
+from sigman_release_torch.ops.rasterizer import backward_tiles as k2
 from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 from sigman_release_torch.ops.rasterizer import (
     RasterizeConfig,
@@ -53,9 +55,9 @@ def test_forward_tiles_rejects_bad_inputs(cuda_device):
         k1.forward_tiles(pairs.double(), idx, idx, ntx=1, tiles_per_view=1)
     with pytest.raises(ValueError, match="int32"):
         k1.forward_tiles(pairs, idx.long(), idx, ntx=1, tiles_per_view=1)
-    with pytest.raises(RuntimeError, match="no backward"):
-        k1.forward_tiles(pairs.requires_grad_(), idx, idx, ntx=1,
-                         tiles_per_view=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.forward_tiles(torch.zeros((16, 128), device=cuda_device).T, idx,
+                         idx, ntx=1, tiles_per_view=1)
 
 
 def test_rasterize_single_cuda_matches_cpu(cuda_device):
@@ -92,3 +94,51 @@ def test_rasterize_single_cuda_matches_cpu(cuda_device):
         diff = (outs[1][k].cpu() - outs[0][k]).abs().max().item()
         assert diff <= 1e-4, (k, diff)
     assert outs[1]["alpha"].max().item() > 0.5
+
+
+def test_backward_tiles_kernel_matches_plain(cuda_device):
+    """Hand-made streams with seeded upstream gradients: per-column relative
+    1e-4 (chip_smoke.K2_TOL), zero rows past saturation, the counter."""
+    rng = np.random.default_rng(1)
+    pairs, start, count = hand_streams(rng)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (pairs, start, count)]
+    kw = dict(ntx=2, tiles_per_view=4, chunk=128)
+    fwd = k1.forward_tiles(*args, **kw)
+    grad = torch.from_numpy(grad_tiles(rng, start.shape[0])).to(cuda_device)
+    before = k2.backward_tiles.launches
+    out = k2.backward_tiles(*args, fwd, grad, **kw)
+    assert k2.backward_tiles.launches == before + 1
+    ref = k2.backward_tiles_plain(*args, fwd, grad, **kw)
+    torch.cuda.synchronize()
+    assert k2_diff(out, ref)[1] <= K2_TOL
+    end = int(start[2] + count[2])
+    assert (out[end - 5:end] == 0).all() and (out[:, 10:] == 0).all()
+    # bit-for-bit repeatable: fixed reduction order, no atomics
+    assert torch.equal(out, k2.backward_tiles(*args, fwd, grad, **kw))
+
+
+def test_backward_tiles_rejects_bad_inputs(cuda_device):
+    pairs = torch.zeros((128, 16), device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    tiles = torch.zeros((1, 8, 1024), device=cuda_device)
+    kw = dict(ntx=1, tiles_per_view=1)
+    with pytest.raises(ValueError, match="float32"):
+        k2.backward_tiles(pairs.double(), idx, idx, tiles, tiles, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        k2.backward_tiles(pairs, idx.long(), idx, tiles, tiles, **kw)
+    with pytest.raises(ValueError, match="grad_tiles"):
+        k2.backward_tiles(pairs, idx, idx, tiles, tiles[:, :5], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.backward_tiles(pairs, idx, idx, tiles,
+                          tiles.transpose(1, 2).contiguous().transpose(1, 2),
+                          **kw)
+
+
+def test_vae_train_step_cuda_matches_cpu(cuda_device):
+    """One test_tiny G step on the card against the CPU (the same weights,
+    batch and noise, TF32 off; chip_smoke phase 9): loss 1e-4 relative,
+    gradient 1e-3 relative L2; K2 launched."""
+    before = k2.backward_tiles.launches
+    loss_rel, grad_rel = small_train_step_diff(cuda_device)
+    assert k2.backward_tiles.launches == before + 1
+    assert loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL

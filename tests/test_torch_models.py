@@ -58,7 +58,7 @@ def test_vae_decode_and_heads_match(cfgs):
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(z),
                      method=jvae.VAEModel.decode)
     ref = _np(jm.apply(params, jnp.asarray(z), method=jvae.VAEModel.decode))
-    tm = tvae.VAEModel(tc).eval()
+    tm = tvae.VAEModel(tc, with_encoder=False).eval()
     tm.load_state_dict(convert.convert_vae_decode(_np_tree(params), tm, tc))
     with torch.no_grad():
         out = _np(tm.decode(torch.from_numpy(z)))

@@ -174,6 +174,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         inference.AvatarPipeline(PRESETS["test_tiny"])
     with pytest.raises(RuntimeError, match="CUDA"):
         inference.main(["--preset", "test_tiny"])
+    from sigman_release_torch import train_vae
+    from sigman_release_torch.training.vae_trainer import VAETrainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VAETrainer(PRESETS["test_tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_vae.main(["test_tiny"])
     from sigman_release_torch.device import resolve_device
     assert resolve_device("cpu").type == "cpu"
 
