@@ -30,11 +30,17 @@ Phases (any failure exits non-zero before the final line):
              100,000 Gaussians, 10 supervised views at 512^2, LPIPS VGG16 at
              256, bf16, per-block remat) on one synthetic item: 3 generator
              steps and 1 discriminator step, launch counts zeroed before;
-8. k2 main — K2 against its plain version on the last generator step's own
-             pair stream and upstream gradients, with its time and bound;
+8. k2 main — K1 and K2 against their plain versions on the last generator
+             step's own pair stream and upstream gradients, with their
+             times (K2 also its launch alone, without the wrapper's zero
+             fill) and bounds;
 9. small train — one ``test_tiny`` generator step on the GPU against the
              CPU (same weights, batch and noise, TF32 off): loss and
              gradients.
+
+Phases 2 and 6 also run ``cull_cases``; phases 4 and 8 print each stream's
+segment lengths and (pair, warp) slots and both bounds (this one: the hits
+plus a staging pass per row; without the cull: every needed evaluation).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs no network and one card; exits
@@ -45,6 +51,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -78,6 +85,17 @@ K1_ROW_BYTES = 40               # the 10 live f32 of a pair row
 # sum w g (4 FMAs: 8)
 K2_WORK = {"power_cut": (11, 0), "floor_cut": (14, 1),
            "contributing": (55, 1), "saturating": (19, 1)}
+# The bound counts only what no exact kernel can skip: the evaluations where
+# alpha > 0 (an exact cull skips every other one) and one staging pass per
+# pair row. The count without the cull prices every needed evaluation of
+# WORK_CLASSES; it is printed beside the bound.
+HIT_CLASSES = ("contributing", "saturating")
+# f32 operations of one staging pass: ml, nl and the six tile-local
+# coefficients (2 subs, 6 muls, 2 FMAs, 1 sub, 3 scalings) = 18; K2 adds
+# the row's gradient from its ten sums (2 x (mul + FMA + neg), 3 scalings,
+# the opacity division and its compare) = 13
+K1_STAGE_OPS = 18
+K2_STAGE_OPS = 31
 K1_TOL = 1e-4                   # kernel vs plain, rgb / depth / alpha rows
 # K2 vs plain: max |kernel - plain| per output column over the plain
 # column's max |value| (the columns span many decades)
@@ -165,6 +183,84 @@ def hand_streams(rng, chunk=128):
     return pairs, np.array(start, np.int32), np.array(count, np.int32)
 
 
+def _pair_rows(mx, my, sx, sy, rho, opa, rng):
+    """Pair rows [k, 16] of Gaussians with the given means, standard
+    deviations, correlation and opacity (arrays or scalars), random colours,
+    increasing depth."""
+    mx, my, sx, sy, rho, opa = np.broadcast_arrays(
+        *(np.asarray(v, np.float64) for v in (mx, my, sx, sy, rho, opa)))
+    k = mx.size
+    det = (sx * sy) ** 2 * (1 - rho ** 2)
+    r = np.zeros((k, 16), np.float32)
+    r[:, 0], r[:, 1] = mx, my
+    r[:, 2] = sy ** 2 / det
+    r[:, 3] = -rho * sx * sy / det
+    r[:, 4] = sx ** 2 / det
+    r[:, 5:8] = rng.uniform(0, 1, (k, 3))
+    r[:, 8] = opa
+    r[:, 9] = np.linspace(0.5, 3.0, k)
+    return r
+
+
+def cull_cases(rng, chunk=128):
+    """Hand-made streams for the kernels' per-warp cull and launch
+    order, each (pairs, tile_start, tile_count, ntx, tiles_per_view):
+
+    * ``staggered_saturation``: one tile; horizontal bands, one per four
+      pixel rows with 2-9 copies each in shuffled depth order, so the rows
+      (and the warps that own them) saturate at different depths, then
+      small Gaussians behind them;
+    * ``whole_tile``: one tile; a Gaussian far wider than the tile (every
+      row's bit set), then small Gaussians;
+    * ``one_warp``: one tile; a Gaussian confined to one warp's 8 x 4
+      pixels (columns 8-15, rows 12-15);
+    * ``longest_first``: one view of 3x2 tiles with segments of 0 to 700
+      pairs, longest in the middle of the grid.
+    """
+    tile = 32
+
+    def small(k, ox=0.0, oy=0.0):
+        return _pair_rows(ox + rng.uniform(-4, tile + 4, k),
+                          oy + rng.uniform(-4, tile + 4, k),
+                          rng.uniform(0.5, 4, k), rng.uniform(0.5, 4, k),
+                          rng.uniform(-0.6, 0.6, k), rng.uniform(0.1, 0.9, k),
+                          rng)
+
+    def stream(segments, ntx, tpv):
+        rows, start, count = [np.zeros((3, 16), np.float32)], [], []
+        for r in segments:
+            start.append(sum(len(x) for x in rows))
+            count.append(len(r))
+            rows.append(r)
+        pairs = np.concatenate(rows)
+        pairs = np.concatenate(
+            [pairs, np.zeros(((-len(pairs)) % chunk, 16), np.float32)])
+        return (pairs, np.array(start, np.int32), np.array(count, np.int32),
+                ntx, tpv)
+
+    band_y = np.repeat(4.0 * np.arange(8) + 1.5, np.arange(2, 10))
+    rng.shuffle(band_y)
+    bands = _pair_rows(16.0, band_y, 60.0, 1.2, 0.0, 0.97, rng)
+    wide = _pair_rows(16.0, 16.0, 300.0, 200.0, 0.3, 0.5, rng)
+    narrow = _pair_rows(10.3, 13.6, 0.4, 0.4, 0.0, 0.9, rng)
+    lengths = [0, 37, 700, 5, 260, 128]
+    return {
+        "staggered_saturation": stream(
+            [np.concatenate([bands, small(60)])], 1, 1),
+        "whole_tile": stream([np.concatenate([wide, small(40)])], 1, 1),
+        "one_warp": stream([narrow], 1, 1),
+        "longest_first": stream(
+            [small(k, (t % 3) * tile, (t // 3) * tile)
+             for t, k in enumerate(lengths)], 3, 6),
+    }
+
+
+def k1_bytes(n_pairs, n_tiles):
+    """K1's own traffic: live pair rows and the segment arrays read once,
+    the [n, 8, 1024] f32 tile buffers written once."""
+    return n_pairs * K1_ROW_BYTES + 8 * n_tiles + n_tiles * 8 * 1024 * 4
+
+
 def k1_diff(out, ref):
     """Max |kernel - plain| over the rgb, depth and alpha rows."""
     return (out[:, :5] - ref[:, :5]).abs().max().item()
@@ -185,11 +281,13 @@ def grad_tiles(rng, n):
     return g
 
 
-def bound_ms(work, prices, n_bytes):
+def bound_ms(work, prices, n_bytes, rows=0, row_ops=0):
     """(bound ms, 'bytes' | 'operations', parts): the larger of the bytes
     over the memory rate and the priced operations (the f32 pipes and the
-    special-function units run side by side, so the larger of the two)."""
-    f32_ops = sum(work[k] * prices[k][0] for k in prices)
+    special-function units run side by side, so the larger of the two).
+    ``work`` classes missing from ``prices`` are not counted; ``rows``
+    staging passes cost ``row_ops`` f32 operations each."""
+    f32_ops = sum(work[k] * prices[k][0] for k in prices) + rows * row_ops
     exps = sum(work[k] * prices[k][1] for k in prices)
     f32_ms = f32_ops / H100_F32_FLOPS * 1e3
     sfu_ms = exps / H100_SFU_PER_S * 1e3
@@ -198,6 +296,42 @@ def bound_ms(work, prices, n_bytes):
     by = max(bound, key=bound.get)
     return bound[by], by, dict(bound, f32_ops=f32_ops, f32_ms=f32_ms,
                                exps=exps, sfu_ms=sfu_ms)
+
+
+def bounds(work, prices, stage_ops, n_pairs, n_bytes):
+    """(the bound, the bound without the cull), each as ``bound_ms``
+    returns it: the hits plus one staging pass per pair row, and every
+    needed evaluation."""
+    hits = {k: prices[k] for k in HIT_CLASSES}
+    return (bound_ms(work, hits, n_bytes, n_pairs, stage_ops),
+            bound_ms(work, prices, n_bytes))
+
+
+def bound_text(ms, new, old):
+    """One line of a kernel's time against both bounds."""
+    (b, by, p), (b2, by2, p2) = new, old
+    return (f"bound {b:.4f} ms ({by}; bytes {p['bytes']:.4f} ms, f32 "
+            f"{p['f32_ops']} ops {p['f32_ms']:.4f} ms, exp {p['exps']} "
+            f"{p['sfu_ms']:.4f} ms; {100 * b / ms:.2f}% reached); without "
+            f"the cull {b2:.4f} ms ({by2}; f32 {p2['f32_ops']} ops, exp "
+            f"{p2['exps']}; {100 * b2 / ms:.2f}%)")
+
+
+def stream_text(tile_count, work):
+    """The segment lengths of a stream's non-empty tiles and its
+    (pair, warp rectangle) slots: those with no alpha > 0 and those the
+    cull keeps, as shares of the slots the warps must visit."""
+    c = np.sort(tile_count.cpu().numpy())
+    c = c[c > 0]
+    q = (lambda f: int(c[min(len(c) - 1, int(f * len(c)))])) if len(c) \
+        else (lambda f: 0)
+    slots = max(work["warp_slots"], 1)
+    return (f"{len(c)} of {tile_count.numel()} tiles non-empty, pairs per "
+            f"non-empty tile p50 {q(0.5)}, p99 {q(0.99)}, max "
+            f"{int(c[-1]) if len(c) else 0}; (pair, 8x4 warp) slots "
+            f"{work['warp_slots']}, no alpha > 0 in "
+            f"{100 * work['warp_slots_empty'] / slots:.2f}%, kept by the "
+            f"cull {100 * work['warp_slots_kept'] / slots:.2f}%")
 
 
 def seeded_pose(rng) -> np.ndarray:
@@ -258,6 +392,15 @@ def main():
         fail("forward_tiles: the empty tile is not empty")
     if out[3, 4, 7 * 32 + 5].item() < 0.79:
         fail("forward_tiles dropped the Gaussian centred on a pixel")
+    for name, (p, st, ct, ntx, tpv) in cull_cases(
+            np.random.default_rng(0)).items():
+        a3 = [torch.from_numpy(x).to(dev) for x in (p, st, ct)]
+        kw3 = dict(ntx=ntx, tiles_per_view=tpv, chunk=128)
+        err = k1_diff(k1.forward_tiles(*a3, **kw3),
+                      k1.forward_tiles_plain(*a3, **kw3))
+        print(f"[k1] cull case {name}: max |kernel - plain| {err:.3e}")
+        if not err <= K1_TOL:
+            fail(f"forward_tiles disagrees with its plain version on {name}")
 
     # ---- 3. the main path at full width ---------------------------------------
     cfg = PRESETS[PRESET]
@@ -334,18 +477,15 @@ def main():
         img_err = (img_plain - render["image"][0]).abs().max().item()
         k1_ms = cuda_ms(lambda: composite(stream, rc), reps=20)
     n_pairs = int(stream.tile_count.sum())
-    n_out = tiles.numel() * 4
-    bytes_moved = n_pairs * K1_ROW_BYTES + 8 * stream.tile_start.numel() \
-        + n_out
-    k1_bound, k1_by, parts = bound_ms(work, K1_WORK, bytes_moved)
+    k1_new, k1_old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
+                            k1_bytes(n_pairs, stream.tile_start.numel()))
+    k1_bound, k1_by = k1_new[:2]
     print(f"[plain] main-path stream: {n_pairs} pairs in "
-          f"{stream.tile_count.numel()} tiles; evaluations needed {work}; "
+          f"{stream.tile_count.numel()} tiles; evaluations {work}; "
           f"max |kernel - plain| {k1_err:.3e}; image max diff {img_err:.3e}")
+    print(f"[plain] serving stream: {stream_text(stream.tile_count, work)}")
     print(f"[plain] forward_tiles {k1_ms:.4f} ms, plain {plain_ms:.1f} ms, "
-          f"bound {k1_bound:.4f} ms ({k1_by}; bytes {parts['bytes']:.4f} ms, "
-          f"f32 {parts['f32_ops']} ops {parts['f32_ms']:.4f} ms, "
-          f"exp {parts['exps']} {parts['sfu_ms']:.4f} ms; "
-          f"{100 * k1_bound / k1_ms:.2f}% of the bound reached)", flush=True)
+          f"{bound_text(k1_ms, k1_new, k1_old)}", flush=True)
     if not k1_err <= K1_TOL:
         fail(f"forward_tiles disagrees with its plain version on the main "
              f"path's stream: {k1_err}")
@@ -401,7 +541,12 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": k1_bound,
         "bound_by": k1_by,
+        "bound_ms_without_cull": k1_old[0],
         "library_ms": None,
+        "train": {"ms": train["k1_ms"], "plain_ms": train["k1_plain_ms"],
+                  "bound_ms": train["k1_bound"],
+                  "bound_ms_without_cull": train["k1_bound_old"],
+                  "max_abs_err": train["k1_err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
@@ -413,9 +558,11 @@ def main():
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
         "ms": train["k2_ms"],
+        "kernel_only_ms": train["k2_kernel_ms"],
         "plain_ms": train["k2_plain_ms"],
         "bound_ms": train["k2_bound"],
         "bound_by": train["k2_by"],
+        "bound_ms_without_cull": train["k2_bound_old"],
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
@@ -466,8 +613,6 @@ def small_train_step_diff(dev):
 
 def train_phases(dev, body, template):
     """Phases 6-9; returns the numbers the kernels line needs."""
-    import statistics
-
     import torch
 
     from sigman_release_torch.config import PRESETS
@@ -497,6 +642,18 @@ def train_phases(dev, body, template):
         fail("backward_tiles wrote rows past saturation or padding columns")
     if not out[int(start[3])].abs().max().item() > 0:
         fail("backward_tiles gave no gradient to the Gaussian on a pixel")
+    for name, (p, st, ct, ntx, tpv) in cull_cases(rng).items():
+        a3 = [torch.from_numpy(x).to(dev) for x in (p, st, ct)]
+        kw3 = dict(ntx=ntx, tiles_per_view=tpv, chunk=128)
+        f3 = k1.forward_tiles(*a3, **kw3)
+        g3 = torch.from_numpy(grad_tiles(rng, st.shape[0])).to(dev)
+        o3 = k2.backward_tiles(*a3, f3, g3, **kw3)
+        rel = k2_diff(o3, k2.backward_tiles_plain(*a3, f3, g3, **kw3))[1]
+        print(f"[k2] cull case {name}: per-column relative {rel:.3e}")
+        if not rel <= K2_TOL or not torch.equal(
+                o3, k2.backward_tiles(*a3, f3, g3, **kw3)):
+            fail(f"backward_tiles disagrees with its plain version or "
+                 f"itself on {name}")
 
     # ---- 7. vae_b training steps at full width ----------------------------------
     cfg = PRESETS[TRAIN_PRESET]
@@ -578,7 +735,7 @@ def train_phases(dev, body, template):
         fail(f"non-finite D loss: {dlogs}")
     del snap, before
 
-    # ---- 8. K2 on the training step's own stream -----------------------------
+    # ---- 8. K1 and K2 on the training step's own stream -----------------------
     a, kw = captured["args"], captured["kw"]
     pairs8, ts8, tc8 = a[:3]
     with torch.no_grad():
@@ -589,29 +746,69 @@ def train_phases(dev, body, template):
         torch.cuda.synchronize()
         k2_plain_ms = (time.perf_counter() - t0) * 1e3
         k2_err, k2_rel = k2_diff(out, ref)
-        del out, ref
+        del ref
         k2_ms = cuda_ms(lambda: k2.backward_tiles(*a, **kw), reps=20)
+        # the launch alone, into a buffer zeroed beforehand: every call
+        # writes the same rows with the same values
+        buf = torch.zeros_like(pairs8)
+        order8 = k1.launch_order(tc8)
+        lib2 = k2._library()
+        cu_stream = torch.cuda.current_stream().cuda_stream
+
+        def launch_alone():
+            rc = lib2.backward_tiles_launch(
+                pairs8.data_ptr(), ts8.data_ptr(), tc8.data_ptr(),
+                order8.data_ptr(), a[3].data_ptr(), a[4].data_ptr(),
+                buf.data_ptr(), ts8.numel(), kw["ntx"],
+                kw["tiles_per_view"], cu_stream)
+            if rc:
+                fail(f"backward_tiles_launch failed: cudaError {rc}")
+
+        k2_kernel_ms = cuda_ms(launch_alone, reps=20)
+        if not torch.equal(buf, out):
+            fail("backward_tiles' launch alone differs from the wrapper's")
+        # rows the kernel must write: those with a nonzero gradient
+        n_written = int((out[:, :10] != 0).any(dim=1).sum())
+        del out, buf
+        fwd8 = k1.forward_tiles(pairs8, ts8, tc8, **kw)
+        t0 = time.perf_counter()
+        ref = k1.forward_tiles_plain(pairs8, ts8, tc8, **kw)
+        torch.cuda.synchronize()
+        k1_plain_ms = (time.perf_counter() - t0) * 1e3
+        k1_err = k1_diff(fwd8, ref)
+        del fwd8, ref
+        k1_ms = cuda_ms(lambda: k1.forward_tiles(pairs8, ts8, tc8, **kw),
+                        reps=20)
     n_pairs, n_tiles = int(tc8.sum()), ts8.numel()
-    # the kernel's own traffic: live pair rows read once and their 10 live
-    # gradient columns written once; forward rows 0-3, 5 and gradient rows
-    # 0-4 of every tile and the segment arrays read once. The wrapper's
-    # zero fill of the whole [budget, 16] output is not the kernel's work:
-    # it is printed beside the bound, not in it.
-    n_bytes = (2 * n_pairs * K1_ROW_BYTES + n_tiles * 10 * 1024 * 4
-               + 8 * n_tiles)
+    k1_new, k1_old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
+                            k1_bytes(n_pairs, n_tiles))
+    print(f"[k1 train] forward_tiles on the training stream {k1_ms:.4f} ms, "
+          f"plain {k1_plain_ms:.1f} ms, max |kernel - plain| {k1_err:.3e}; "
+          f"{bound_text(k1_ms, k1_new, k1_old)}", flush=True)
+    if not k1_err <= K1_TOL:
+        fail(f"forward_tiles disagrees with its plain version on the "
+             f"training stream: {k1_err}")
+    # the function's own traffic: live pair rows read once, the 10 gradient
+    # columns of the rows with a nonzero gradient written once, forward rows
+    # 0-3, 5 and gradient rows 0-4 of the non-empty tiles (an empty tile
+    # needs none) and the segment arrays read once. The wrapper's zero fill
+    # of the whole [budget, 16] output is not the kernel's work: it is
+    # printed beside the bound, not in it.
+    n_bytes = ((n_pairs + n_written) * K1_ROW_BYTES
+               + int((tc8 > 0).sum()) * 10 * 1024 * 4 + 8 * n_tiles)
     fill_ms = pairs8.numel() * 4 / H100_BYTES_PER_S * 1e3
-    k2_bound, k2_by, parts = bound_ms(work, K2_WORK, n_bytes)
+    k2_new, k2_old = bounds(work, K2_WORK, K2_STAGE_OPS, n_pairs, n_bytes)
+    k2_bound, k2_by = k2_new[:2]
     print(f"[k2 main] stream: {n_pairs} pairs in {n_tiles} tiles (budget "
-          f"{pairs8.shape[0]}); evaluations needed {work}; max |kernel - "
-          f"plain| {k2_err:.3e}, per-column relative {k2_rel:.3e}")
-    print(f"[k2 main] backward_tiles {k2_ms:.4f} ms, plain {k2_plain_ms:.1f} "
-          f"ms, bound {k2_bound:.4f} ms ({k2_by}; bytes {parts['bytes']:.4f} "
-          f"ms, f32 {parts['f32_ops']} ops {parts['f32_ms']:.4f} ms, exp "
-          f"{parts['exps']} {parts['sfu_ms']:.4f} ms; "
-          f"{100 * k2_bound / k2_ms:.2f}% of the bound reached); the "
-          f"wrapper's zero fill of the {pairs8.numel() * 4 / 1e6:.0f} MB "
-          f"output, outside the bound, takes at least {fill_ms:.4f} ms",
-          flush=True)
+          f"{pairs8.shape[0]}), {n_written} rows with a gradient; "
+          f"evaluations {work}; max |kernel - plain| {k2_err:.3e}, "
+          f"per-column relative {k2_rel:.3e}")
+    print(f"[k2 main] training stream: {stream_text(tc8, work)}")
+    print(f"[k2 main] backward_tiles {k2_ms:.4f} ms with the wrapper's zero "
+          f"fill of the {pairs8.numel() * 4 / 1e6:.0f} MB output (at least "
+          f"{fill_ms:.4f} ms, outside the bound), {k2_kernel_ms:.4f} ms the "
+          f"launch alone; plain {k2_plain_ms:.1f} ms; "
+          f"{bound_text(k2_kernel_ms, k2_new, k2_old)}", flush=True)
     if not k2_rel <= K2_TOL:
         fail(f"backward_tiles disagrees with its plain version on the "
              f"training stream: {k2_rel}")
@@ -627,8 +824,11 @@ def train_phases(dev, body, template):
              f"{loss_rel}, gradient {grad_rel}")
     return {"k1_launches": k1_train, "k2_launches": k2_train,
             "k2_err": k2_err, "k2_rel": k2_rel, "k2_ms": k2_ms,
-            "k2_plain_ms": k2_plain_ms, "k2_bound": k2_bound,
-            "k2_by": k2_by}
+            "k2_kernel_ms": k2_kernel_ms, "k2_plain_ms": k2_plain_ms,
+            "k2_bound": k2_bound, "k2_by": k2_by,
+            "k2_bound_old": k2_old[0], "k1_ms": k1_ms,
+            "k1_plain_ms": k1_plain_ms, "k1_err": k1_err,
+            "k1_bound": k1_new[0], "k1_bound_old": k1_old[0]}
 
 
 if __name__ == "__main__":

@@ -24,7 +24,9 @@ gradient still differentiates ``opa exp(power)`` (the JAX package's
 straight-through derivative).
 
 ``backward_tiles`` launches the CUDA kernel (``csrc/backward_tiles.cu``)
-for a CUDA tensor and takes the plain version only for a CPU tensor.
+for a CUDA tensor and takes the plain version only for a CPU tensor. The
+kernel culls as forward_tiles' does (pairs with alpha 0 at every pixel of a
+warp's rectangle), which changes no term of the sums.
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from sigman_release_torch.ops.rasterizer.binning import (
     F_CA, F_CB, F_CC, F_DEPTH, F_MX, F_MY, F_OPA, F_R, PAIR_FEATS, TILE,
 )
 from sigman_release_torch.ops.rasterizer.forward_tiles import (
-    ALPHA_MAX, PLAIN_STEP_ELEMS, T_EPS, WORK_CLASSES, _alpha, pixel_frame,
-    segment_chunks, work_counts,
+    ALPHA_MAX, PLAIN_STEP_ELEMS, T_EPS, WARP_CLASSES, WORK_CLASSES, _alpha,
+    cull_rects, launch_order, pixel_frame, segment_chunks, work_counts,
 )
 from sigman_release_torch.utils import cuda_build
 
@@ -51,7 +53,7 @@ PLAIN_STEP_ELEMS_BWD = PLAIN_STEP_ELEMS // 2
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     fn = lib.backward_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -63,9 +65,9 @@ def backward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
     """d(pairs) [budget, 16] f32 from the forward tile buffers and their
     upstream gradients (both [n, 8, TILE^2] f32).
 
-    CUDA tensors launch the kernel (counted in ``backward_tiles.launches``);
-    CPU tensors run :func:`backward_tiles_plain` (``chunk`` sets its pair
-    grouping).
+    CUDA tensors launch the kernel (counted in ``backward_tiles.launches``)
+    into a zero-filled result; CPU tensors run :func:`backward_tiles_plain`
+    (``chunk`` sets its pair grouping).
     """
     if pairs.device.type == "cpu":
         return backward_tiles_plain(pairs, tile_start, tile_count, fwd_tiles,
@@ -92,12 +94,13 @@ def backward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
     if pairs.data_ptr() % 16:
         raise ValueError("pairs must be 16-byte aligned")
     out = torch.zeros_like(pairs)
+    order = launch_order(tile_count)
     lib = _library()
     stream = torch.cuda.current_stream(pairs.device).cuda_stream
     rc = lib.backward_tiles_launch(
         pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        fwd_tiles.data_ptr(), grad_tiles.data_ptr(), out.data_ptr(), n, ntx,
-        tiles_per_view, stream)
+        order.data_ptr(), fwd_tiles.data_ptr(), grad_tiles.data_ptr(),
+        out.data_ptr(), n, ntx, tiles_per_view, stream)
     if rc != 0:
         raise RuntimeError(f"backward_tiles kernel launch failed: cudaError {rc}")
     backward_tiles.launches += 1
@@ -138,9 +141,8 @@ def backward_tiles_plain(pairs, tile_start, tile_count, fwd_tiles,
     alpha))), the prefix a cumsum, the moments sums over the pixel axis.
     Each pair row lies in exactly one segment, so each is written once.
 
-    ``work``, if a dict, receives the count of each of ``WORK_CLASSES``:
-    the (pair, pixel) evaluations at pixels not yet saturated, as
-    ``forward_tiles_plain`` counts them.
+    ``work``, if a dict, receives the count of each of ``WORK_CLASSES`` and
+    ``WARP_CLASSES``, as ``forward_tiles_plain`` counts them.
     """
     dev = pairs.device
     n = tile_start.shape[0]
@@ -160,7 +162,8 @@ def backward_tiles_plain(pairs, tile_start, tile_count, fwd_tiles,
     out = torch.zeros_like(pairs)
     Tf = torch.ones((n, 1, npx), device=dev)
     prefix = torch.zeros((n, 1, npx), device=dev)
-    counts = torch.zeros(len(WORK_CLASSES), dtype=torch.int64, device=dev)
+    classes = WORK_CLASSES + WARP_CLASSES
+    counts = torch.zeros(len(classes), dtype=torch.int64, device=dev)
     group = max(1, PLAIN_STEP_ELEMS_BWD // (chunk * npx))
     for g0 in range(0, n, group):
         tiles_g = torch.arange(g0, min(n, g0 + group), device=dev)
@@ -202,9 +205,10 @@ def backward_tiles_plain(pairs, tile_start, tile_count, fwd_tiles,
             out[idx[row_ok]] = rows[row_ok]
             if work is not None:
                 counts += work_counts(row_ok, t_excl, power_ok, alpha,
-                                      contrib)
+                                      contrib,
+                                      cull_rects(feats, ox[act], oy[act]))
             Tf[act] = t_incl[:, -1:]
             prefix[act] = pref[:, -1:]
     if work is not None:
-        work.update(zip(WORK_CLASSES, counts.tolist()))
+        work.update(zip(classes, counts.tolist()))
     return out

@@ -1,5 +1,5 @@
-// backward_tiles: analytic VJP of forward_tiles, one thread block per
-// (view, 32x32 tile), one thread per pixel.
+// backward_tiles: analytic VJP of forward_tiles, one 1024-thread block per
+// (view, 32x32 tile), one pixel a thread.
 //
 // Replaces the Pallas TPU kernel
 // ops/rasterizer/pallas_backward.py::backward_tiles of the JAX package
@@ -22,8 +22,8 @@
 //   (dx, dy) = mean - pixel, and sum w g_{r,g,b,d}; then
 //   d(mean x) = -(a Sx + b Sy), d(mean y) = -(c Sy + b Sx),
 //   d(a, b, c) = -(Sxx / 2, Sxy, Syy / 2), d(opacity) = S0 / opa,
-//   d(r, g, b, depth) = sum w g. Columns 10-15 and rows the block never
-//   reaches stay as the caller's zeros.
+//   d(r, g, b, depth) = sum w g. Columns 10-15, rows whose sums are all
+//   zero and rows the block never reaches stay as the caller's zeros.
 //
 // The JAX kernel sums the moments in tile-local coordinates and expands
 // them (its lines 254-266: a_grad = -(ml^2 S0 - 2 ml SX + SXX) / 2, ...);
@@ -32,191 +32,248 @@
 // Centred moments are the same sums without the cancellation.
 //
 // The suffix term TOT - prefix cancels only if the replayed weights w are
-// the ones forward_tiles summed into rgb_out: rows are staged with exactly
-// forward_tiles.cu's coefficient arithmetic (the same fmaf / __fmul_rn
-// order) and the transmittance is the same running product.
+// the ones forward_tiles summed into rgb_out: rows are staged by the same
+// code (tile_common.cuh), the cull skips only pairs whose alpha is exactly
+// 0, and the transmittance is the same running product.
 //
-// What bounds it on an H100: arithmetic, as forward_tiles, plus the
-// reduction of ten sums per pair over the tile's 1024 pixels. Design: no
-// carry between blocks and no atomics in device memory (a pair row belongs
-// to exactly one (view, tile), so its block writes it once). Rows are
-// staged 32 at a time; for each row every warp reduces its ten sums with
-// shuffles (skipped, with zeros stored, when no lane of the warp has a
-// nonzero weight), lane 0 stores them in shared memory, and after the
-// batch 320 threads sum the 32 warps' partials in a fixed order, so runs
-// repeat bit for bit. The block stops once every pixel is saturated
-// (__syncthreads_count), as forward_tiles does.
+// What bounds it on an H100: as forward_tiles, the bytes, once the
+// evaluations no exact kernel needs are gone (the live rows read, the rows
+// with a gradient written, the fwd and grad rows of the non-empty tiles),
+// and the long segments in practice. Without a cull the time goes to
+// evaluations with alpha == 0, and with a straightforward reduction to a
+// ten-sum shuffle tree (50 shuffles) for every (row, warp) with a hit, a
+// barrier per step and one thread per output value of each staged row.
+// The design, each element timed against its alternative on the card
+// (PERF.md):
+//   * the cull and the per-warp row lists of forward_tiles.cu: a warp
+//     visits only the rows whose mask has its 8 x 4 rectangle;
+//   * a warp with a nonzero term reduces its ten sums by recursive halving
+//     (each exchange step sends half of the remaining sums: 8 + 4 + 2 + 1
+//     + 1 = 16 shuffles), stores one partial per (row, warp) and ORs its
+//     bit into the row's set of writers (an integer OR: the set, not the
+//     order, is recorded);
+//   * rows are copied with cp.async a batch ahead and staged kBatch = 128
+//     at a time (64 is slower) into a double buffer held in dynamic shared
+//     memory with the partials: two barriers per batch; then one thread per
+//     row adds the partials of its writers in warp order and writes the
+//     row;
+//   * blocks launch longest segment first, as forward_tiles (tile order is
+//     slower). A tile keeps one block: its rows are then written once,
+//     without atomics.
+// No carry between blocks and no float atomics: every sum runs in a fixed
+// order, so runs repeat bit for bit. Tensor cores do not fit: the moments
+// cancel across pixels, and TF32 or bf16 products would miss the 1e-4
+// per-column tolerance; the rest is exps and a serial transmittance.
 
 #include <cuda_runtime.h>
 
+#include "tile_common.cuh"
+
 namespace {
 
-constexpr int kTile = 32;        // tile side; one thread per pixel
-constexpr int kPixels = kTile * kTile;
-constexpr int kWarps = kPixels / 32;
-constexpr int kBatch = 32;       // pair rows staged per shared-memory batch
-constexpr int kCoef = 12;        // floats per staged row (11 used)
-constexpr int kGeom = 8;         // ml, nl, ca, cb, cc, opa (6 used)
-constexpr int kSums = 10;        // S0 Sx Sy Sxx Sxy Syy, sum w g_{r,g,b,d}
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr float kPowerEps = 1e-3f;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace tiles;
 
-__global__ void __launch_bounds__(kPixels)
+constexpr int kSums = 10;  // S0 Sx Sy Sxx Sxy Syy, sum w g_{r,g,b,d}
+constexpr int kBatch = 128;  // pair rows per staged batch
+
+// One step of recursive halving: lanes with bit 2 kHalf set keep the upper
+// half of v[0..2 kHalf), the others the lower half, and each adds its
+// partner's copy of the half it keeps.
+template <int kHalf>
+__device__ __forceinline__ void halve(float (&v)[16], int lane) {
+  const bool upper = (lane & (2 * kHalf)) != 0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) {
+    const float keep = upper ? v[i + kHalf] : v[i];
+    const float send = upper ? v[i] : v[i + kHalf];
+    v[i] = keep + __shfl_xor_sync(kFull, send, 2 * kHalf);
+  }
+}
+
+// Sums s[0..kSums) over the warp: returns, in lanes 2m and 2m + 1, the
+// warp's total of sum m (m < kSums; other lanes hold padding). Fixed order:
+// the result does not depend on timing.
+__device__ __forceinline__ float reduce_sums(const float (&s)[kSums],
+                                             int lane) {
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = i < kSums ? s[i] : 0.0f;
+  halve<8>(v, lane);
+  halve<4>(v, lane);
+  halve<2>(v, lane);
+  halve<1>(v, lane);
+  return v[0] + __shfl_xor_sync(kFull, v[0], 1);
+}
+
+// One block of 1024 threads (a pixel each) per tile; kBatch pair rows per
+// staged batch. Shared memory (dynamic, SharedLayout) holds two batches of
+// staged rows and one batch of (warp, row) partials.
+struct SharedLayout {
+  static constexpr int kWarps = kPixels / 32;
+  Coef coef[2][kBatch];
+  float4 conic[2][kBatch];                     // nl, a, b, c
+  float part[kWarps][kBatch][kSums];
+  RawRow raw[kBatch];                          // the next batch, in flight
+  unsigned mask[2][kBatch];
+  unsigned writers[2][kBatch];                 // warps that set a partial
+};
+
+__global__ void __launch_bounds__(kPixels, 1)
 backward_tiles_kernel(const float* __restrict__ pairs,
                       const int* __restrict__ tile_start,
                       const int* __restrict__ tile_count,
+                      const int* __restrict__ order,
                       const float* __restrict__ fwd,
                       const float* __restrict__ grad,
                       float* __restrict__ d_pairs,
                       int ntx, int tiles_per_view) {
-  __shared__ __align__(16) float coef[kBatch * kCoef];
-  __shared__ float geom[kBatch * kGeom];
-  // per (warp, row, sum) partials; after a batch, warp 0's slots hold the
-  // block totals
-  __shared__ float part[kWarps * kBatch * kSums];
+  using S = SharedLayout;
+  constexpr int kStageWarps = kBatch / 32;    // warps that stage a batch
+  static_assert(kBatch % 32 == 0 && kStageWarps <= S::kWarps, "batch shape");
+  extern __shared__ float4 smem_raw[];
+  S& sh = *reinterpret_cast<S*>(smem_raw);
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31;
-  const int warp = p >> 5;
+  const int t = order[blockIdx.x];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;           // = the warp's rectangle
   const int tv = t % tiles_per_view;
   const float ox = static_cast<float>((tv % ntx) * kTile);
   const float oy = static_cast<float>((tv / ntx) * kTile);
-  const float X = static_cast<float>(p % kTile);
-  const float Y = static_cast<float>(p / kTile);
-  const float XX = X * X, XY = X * Y, YY = Y * Y;
-
+  const int px = pixel_x(warp, lane), py = pixel_y(warp, lane);
+  const float X = static_cast<float>(px), Y = static_cast<float>(py);
   const int start = tile_start[t];
   const int count = tile_count[t];
 
-  const size_t px = static_cast<size_t>(t) * 8 * kPixels + p;
-  const float g_r = grad[px];
-  const float g_g = grad[px + kPixels];
-  const float g_b = grad[px + 2 * kPixels];
-  const float g_d = grad[px + 3 * kPixels];
-  const float g_a = grad[px + 4 * kPixels];
-  const float tot = g_r * fwd[px] + g_g * fwd[px + kPixels]
-                    + g_b * fwd[px + 2 * kPixels] + g_d * fwd[px + 3 * kPixels]
-                    - g_a * fwd[px + 5 * kPixels];
+  // as forward_tiles.cu: `fetch` copies a batch ahead, `stage` converts
+  auto fetch = [&](int b0) {
+    const int slot = warp * 32 + lane;
+    if (warp < kStageWarps && b0 + slot < count) {
+      copy_row_async(&sh.raw[slot],
+                     pairs + static_cast<size_t>(start + b0 + slot) * 16);
+    }
+  };
+  auto stage = [&](int buf, int b0) {
+    const int slot = warp * 32 + lane;
+    if (warp < kStageWarps && b0 + slot < count) {
+      wait_rows();
+      const RawRow r = sh.raw[slot];
+      const Ellipse e = ellipse(r, ox, oy);
+      const unsigned m = cull_bits(e, kFull);
+      sh.mask[buf][slot] = m;
+      if (m != 0u) {
+        sh.coef[buf][slot] = coefficients(r, ox, oy);
+        sh.conic[buf][slot] = make_float4(e.nl, e.ca, e.cb, e.cc);
+      }
+    }
+  };
+
+  const size_t pix = static_cast<size_t>(t) * 8 * kPixels + py * kTile + px;
+  const float g_r = grad[pix];
+  const float g_g = grad[pix + kPixels];
+  const float g_b = grad[pix + 2 * kPixels];
+  const float g_d = grad[pix + 3 * kPixels];
+  const float g_a = grad[pix + 4 * kPixels];
+  const float tot = g_r * fwd[pix] + g_g * fwd[pix + kPixels]
+                    + g_b * fwd[pix + 2 * kPixels] + g_d * fwd[pix + 3 * kPixels]
+                    - g_a * fwd[pix + 5 * kPixels];
 
   float Tf = 1.0f;
   float prefix = 0.0f;
   bool live = true;  // this pixel still has Tf >= T_EPS
 
-  for (int base = 0; base < count; base += kBatch) {
-    // doubles as the barrier that protects the shared arrays from the
-    // previous batch's final pass
+  for (int j = threadIdx.x; j < 2 * kBatch; j += kPixels) {
+    sh.writers[j / kBatch][j % kBatch] = 0u;
+  }
+  fetch(0);
+  stage(0, 0);
+  fetch(kBatch);
+  for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
+    // makes batch `buf` visible; frees buffer buf ^ 1 and `part`
     if (__syncthreads_count(live) == 0) break;
     const int n = min(kBatch, count - base);
-    if (p < n) {
-      const float* row = pairs + static_cast<size_t>(start + base + p) * 16;
-      const float4 f0 = *reinterpret_cast<const float4*>(row);      // mx my ca cb
-      const float4 f1 = *reinterpret_cast<const float4*>(row + 4);  // cc r g b
-      const float2 f2 = *reinterpret_cast<const float2*>(row + 8);  // opa depth
-      const float ml = f0.x - ox, nl = f0.y - oy;
-      const float ca = f0.z, cb = f0.w, cc = f1.x;
-      // forward_tiles.cu's coefficient arithmetic, operation for operation
-      const float cbm = __fmul_rn(cb, ml);
-      float* k = coef + p * kCoef;
-      k[0] = __fsub_rn(
-          __fmul_rn(-0.5f, fmaf(__fmul_rn(ca, ml), ml,
-                                __fmul_rn(__fmul_rn(cc, nl), nl))),
-          __fmul_rn(cbm, nl));
-      k[1] = fmaf(cb, nl, __fmul_rn(ca, ml));
-      k[2] = fmaf(cc, nl, cbm);
-      k[3] = -0.5f * ca;
-      k[4] = -cb;
-      k[5] = -0.5f * cc;
-      k[6] = f2.x;   // opacity
-      k[7] = f1.y;   // r
-      k[8] = f1.z;   // g
-      k[9] = f1.w;   // b
-      k[10] = f2.y;  // depth
-      float* g = geom + p * kGeom;
-      g[0] = ml;
-      g[1] = nl;
-      g[2] = ca;
-      g[3] = cb;
-      g[4] = cc;
-      g[5] = f2.x;
+    for (int j = threadIdx.x; j < kBatch; j += kPixels) {
+      sh.writers[buf ^ 1][j] = 0u;
     }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float* k = coef + j * kCoef;
-      float d_pow = 0.0f, w = 0.0f;
-      if (live) {
-        float power = fmaf(k[1], X, k[0]);
-        power = fmaf(k[2], Y, power);
-        power = fmaf(k[3], XX, power);
-        power = fmaf(k[4], XY, power);
-        power = fmaf(k[5], YY, power);
-        if (power <= kPowerEps) {
-          const float raw = k[6] * expf(fminf(power, 0.0f));
-          if (raw >= kAlphaMin) {
-            const float alpha = fminf(raw, kAlphaMax);
-            const float t_incl = Tf * (1.0f - alpha);
-            if (t_incl >= kTEps) {
-              w = alpha * Tf;
-              const float u = g_r * k[7] + g_g * k[8] + g_b * k[9]
-                              + g_d * k[10];
-              const float uw = u * w;
-              prefix += uw;
-              // the 0.99 clamp has no gradient
-              if (raw < kAlphaMax) {
-                d_pow = uw - alpha / (1.0f - alpha) * (tot - prefix);
+    for (int c = 0; c < n && __any_sync(kFull, live); c += 32) {
+      const bool mine =
+          c + lane < n && ((sh.mask[buf][c + lane] >> warp) & 1u);
+      unsigned rows = __ballot_sync(kFull, mine);
+      while (rows) {
+        const int jj = __ffs(rows) - 1;
+        rows &= rows - 1;
+        const int j = c + jj;
+        float d_pow = 0.0f, w = 0.0f;
+        const Coef k = sh.coef[buf][j];
+        if (live) {
+          const float power = exponent(k, X, Y);
+          if (power <= kPowerEps) {
+            const float raw_alpha = k.q1.z * expf(fminf(power, 0.0f));
+            if (raw_alpha >= kAlphaMin) {
+              const float alpha = fminf(raw_alpha, kAlphaMax);
+              const float t_incl = Tf * (1.0f - alpha);
+              if (t_incl >= kTEps) {
+                w = alpha * Tf;
+                const float u = g_r * k.q2.x + g_g * k.q2.y + g_b * k.q2.z
+                                + g_d * k.q1.w;
+                const float uw = u * w;
+                prefix += uw;
+                // the 0.99 clamp has no gradient
+                if (raw_alpha < kAlphaMax) {
+                  d_pow = uw - alpha / (1.0f - alpha) * (tot - prefix);
+                }
               }
+              Tf = t_incl;
+              if (Tf < kTEps) live = false;
             }
-            Tf = t_incl;
-            if (Tf < kTEps) live = false;
           }
         }
-      }
-      float* dst = part + (warp * kBatch + j) * kSums;
-      if (__any_sync(kFullMask, w != 0.0f || d_pow != 0.0f)) {
-        const float dx = geom[j * kGeom] - X;      // mean - pixel
-        const float dy = geom[j * kGeom + 1] - Y;
-        const float ddx = d_pow * dx, ddy = d_pow * dy;
-        float s[kSums] = {d_pow, ddx, ddy, ddx * dx, ddx * dy, ddy * dy,
-                          w * g_r, w * g_g, w * g_b, w * g_d};
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-          for (int c = 0; c < kSums; ++c) {
-            s[c] += __shfl_down_sync(kFullMask, s[c], off);
+        if (__any_sync(kFull, w != 0.0f || d_pow != 0.0f)) {
+          const float dx = k.q2.w - X;                 // mean - pixel
+          const float dy = sh.conic[buf][j].x - Y;
+          const float ddx = d_pow * dx, ddy = d_pow * dy;
+          const float s[kSums] = {d_pow, ddx, ddy, ddx * dx, ddx * dy,
+                                  ddy * dy, w * g_r, w * g_g, w * g_b,
+                                  w * g_d};
+          const float total = reduce_sums(s, lane);
+          if ((lane & 1) == 0 && (lane >> 1) < kSums) {
+            sh.part[warp][j][lane >> 1] = total;
           }
+          // an integer OR: the set, not the order, is what is recorded
+          if (lane == 0) atomicOr(&sh.writers[buf][j], 1u << warp);
         }
-        if (lane == 0) {
-#pragma unroll
-          for (int c = 0; c < kSums; ++c) dst[c] = s[c];
-        }
-      } else if (lane == 0) {
-#pragma unroll
-        for (int c = 0; c < kSums; ++c) dst[c] = 0.0f;
       }
     }
+    if (base + kBatch < count) stage(buf ^ 1, base + kBatch);
     __syncthreads();
-    if (p < n * kSums) {
-      // thread (row i, sum c) is the only one to touch the slots [*, i, c]
-      const int i = p / kSums, c = p % kSums;
-      float acc = 0.0f;
-      for (int wi = 0; wi < kWarps; ++wi) {
-        acc += part[(wi * kBatch + i) * kSums + c];
+    // row j: the partials of the warps that set one, in warp order
+    const int j = threadIdx.x;
+    const unsigned wr = j < n ? sh.writers[buf][j] : 0u;
+    if (wr != 0u) {
+      float s[kSums];
+      const int w0 = __ffs(wr) - 1;
+#pragma unroll
+      for (int q = 0; q < kSums; q += 2) {
+        const float2 v = *reinterpret_cast<const float2*>(&sh.part[w0][j][q]);
+        s[q] = v.x;
+        s[q + 1] = v.y;
       }
-      part[i * kSums + c] = acc;
-    }
-    __syncthreads();
-    if (p < n) {
-      const float* s = part + p * kSums;
-      const float* g = geom + p * kGeom;
-      const float ca = g[2], cb = g[3], cc = g[4], opa = g[5];
-      const float s0 = s[0], sx = s[1], sy = s[2];
-      float* o = d_pairs + static_cast<size_t>(start + base + p) * 16;
+      for (unsigned m = wr & (wr - 1); m; m &= m - 1) {
+        const int wi = __ffs(m) - 1;
+#pragma unroll
+        for (int q = 0; q < kSums; q += 2) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(&sh.part[wi][j][q]);
+          s[q] += v.x;
+          s[q + 1] += v.y;
+        }
+      }
+      const float4 g = sh.conic[buf][j];         // nl, a, b, c
+      const float ca = g.y, cb = g.z, cc = g.w;
+      const float opa = sh.coef[buf][j].q1.z;
+      float* o = d_pairs + static_cast<size_t>(start + base + j) * 16;
       float4 o0, o1;
-      o0.x = -(ca * sx + cb * sy);                            // mean x
-      o0.y = -(cc * sy + cb * sx);                            // mean y
+      o0.x = -(ca * s[1] + cb * s[2]);                        // mean x
+      o0.y = -(cc * s[2] + cb * s[1]);                        // mean y
       o0.z = -0.5f * s[3];                                    // conic a
       o0.w = -s[4];                                           // conic b
       o1.x = -0.5f * s[5];                                    // conic c
@@ -225,30 +282,37 @@ backward_tiles_kernel(const float* __restrict__ pairs,
       o1.w = s[8];                                            // b
       float2 o2;
       // a live pixel has alpha = opa exp(power): sum d_alpha exp = S0 / opa
-      o2.x = opa > 0.0f ? s0 / fmaxf(opa, 1e-12f) : 0.0f;     // opacity
+      o2.x = opa > 0.0f ? s[0] / fmaxf(opa, 1e-12f) : 0.0f;   // opacity
       o2.y = s[9];                                            // depth
       *reinterpret_cast<float4*>(o) = o0;
       *reinterpret_cast<float4*>(o + 4) = o1;
       *reinterpret_cast<float2*>(o + 8) = o2;
     }
+    if (base + 2 * kBatch < count) fetch(base + 2 * kBatch);
   }
+  wait_rows();  // a block that stopped early leaves no copy in flight
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 on success). `d_pairs`
-// must hold zeros: the kernel writes only the rows it reaches, columns 0-9.
+// Plain C entry point for ctypes. `order` lists the n_programs tiles in
+// launch order. Launches on `stream`, does not synchronise, and returns the
+// CUDA error (0 on success). `d_pairs` must hold zeros: the kernel writes
+// only the rows with a nonzero sum, columns 0-9.
 extern "C" int backward_tiles_launch(const float* pairs, const int* tile_start,
-                                     const int* tile_count, const float* fwd,
-                                     const float* grad, float* d_pairs,
-                                     int n_programs, int ntx,
+                                     const int* tile_count, const int* order,
+                                     const float* fwd, const float* grad,
+                                     float* d_pairs, int n_programs, int ntx,
                                      int tiles_per_view, void* stream) {
-  if (n_programs > 0) {
-    backward_tiles_kernel<<<n_programs, kPixels, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        pairs, tile_start, tile_count, fwd, grad, d_pairs, ntx,
-        tiles_per_view);
-  }
+  if (n_programs <= 0) return 0;
+  constexpr int bytes = sizeof(SharedLayout);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      backward_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  backward_tiles_kernel<<<n_programs, kPixels, bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pairs, tile_start, tile_count, order, fwd, grad, d_pairs, ntx,
+      tiles_per_view);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // forward_tiles: front-to-back alpha compositing of depth-sorted Gaussian
-// pairs, one thread block per (view, 32x32 tile), one thread per pixel.
+// pairs; four thread blocks per (view, 32x32 tile), one pixel a thread.
 //
 // Replaces the Pallas TPU kernel
 // ops/rasterizer/pallas_forward.py::forward_tiles of the JAX package
@@ -22,118 +22,146 @@
 // d = pixel - mean directly differs from it by up to 1e-3 relative at a
 // pixel sitting on a Gaussian's mean.
 //
-// What bounds it on an H100: arithmetic, not memory. Each pair row is read
-// once per tile (40 live bytes) but evaluated at every pixel of the tile
-// still short of saturation: 11 to 28 f32 operations and at most one exp
-// each, by how far down the loop it runs (chip_smoke.py counts the four
-// cases on the main path's stream). The design keeps the
-// inner loop free of memory traffic: the block stages 256 rows at a time
-// into shared memory, converting each row once into its six tile-local
-// quadratic coefficients plus opacity, colour and depth, and every thread
-// then reads them as broadcasts. The block stops as soon as every pixel is
-// saturated (__syncthreads_count), so saturated tiles skip the rest of
-// their segment. Segments need no alignment: the block reads its own start
-// and count.
+// What bounds it on an H100. The work no exact kernel can skip is small: on
+// the main path's streams ~3% of the (pair, pixel) evaluations at
+// unsaturated pixels reach alpha > 0, so with one staging pass per pair row
+// the bound is the bytes (the rows read once, the [n, 8, 1024] output
+// written once). What holds the kernel far from it is the few long
+// segments: a tenth of the 512^2 views is covered, and a handful of tiles
+// hold 30-45 k pairs each while the median tile holds ~20, so the grid ends
+// with those tiles' blocks alone on their SMs. Evaluating every row at
+// every unsaturated pixel, as a kernel without a cull must, costs more
+// than all the rest together. The design, each element timed against its
+// alternative on the card (PERF.md):
+//   * the exact per-warp cull of tile_common.cuh: staging gives each row a
+//     32-bit mask over the tile's 8 x 4 warp rectangles, and each warp
+//     takes, per 32 staged rows, the list of rows with its bit (a ballot)
+//     and walks only those; a skipped row costs the warp nothing;
+//   * kBands = 4 blocks of 256 threads share a tile, each a band of 8
+//     pixel rows, so a long segment is composited on four SMs (1 and 2
+//     blocks per tile are slower); a band block tests only its own
+//     rectangles at staging;
+//   * blocks launch longest segment first (`order`, from the wrapper's
+//     argsort of tile_count, as backward_tiles), so the long tiles start in
+//     the first wave: faster on the training stream, a few hundredths of a
+//     millisecond slower on the serving stream, whose long tiles come early
+//     in tile order and where the argsort is not repaid;
+//   * rows are copied into shared memory with cp.async a batch ahead and
+//     staged 256 at a time (one row per lane) into a double buffer: one
+//     barrier per batch; staged rows are three float4, read as broadcasts.
+// The block stops once every pixel is saturated (__syncthreads_count).
+// Tensor cores do not fit: each (pair, pixel) step is an exp followed by a
+// serial f32 transmittance update, and nothing here is a matrix product.
 
 #include <cuda_runtime.h>
 
+#include "tile_common.cuh"
+
 namespace {
 
-constexpr int kTile = 32;        // tile side; one thread per pixel
-constexpr int kPixels = kTile * kTile;
-constexpr int kBatch = 256;      // pair rows staged per shared-memory batch
-constexpr int kCoef = 12;        // floats per staged row (11 used)
-constexpr float kAlphaMin = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr float kPowerEps = 1e-3f;
+using namespace tiles;
 
-__global__ void __launch_bounds__(kPixels)
+constexpr int kBatch = 256;                  // pair rows per staged batch
+// blocks per tile, each a band of 32 / kBands pixel rows (whole rows of warp
+// rectangles), one pixel per thread
+constexpr int kBands = 4;
+
+__global__ void __launch_bounds__(kPixels / kBands, kBands)
 forward_tiles_kernel(const float* __restrict__ pairs,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
+                     const int* __restrict__ order,
                      float* __restrict__ out,
                      int ntx, int tiles_per_view) {
-  __shared__ __align__(16) float coef[kBatch * kCoef];
+  constexpr int kWarps = kPixels / kBands / 32;
+  constexpr int kStageWarps = kBatch / 32;    // warps that stage a batch
+  static_assert(kStageWarps <= kWarps, "one staged row per lane");
+  __shared__ Coef coef[2][kBatch];
+  __shared__ unsigned mask[2][kBatch];
+  __shared__ RawRow raw[kBatch];             // the next batch, in flight
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int t = order[blockIdx.x / kBands];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int band = blockIdx.x % kBands;
+  const int rect = band * kWarps + warp;                 // mask bit
+  // the mask bits of this block's warps
+  const unsigned band_bits = ((1u << kWarps) - 1u) << (band * kWarps);
   const int tv = t % tiles_per_view;
   const float ox = static_cast<float>((tv % ntx) * kTile);
   const float oy = static_cast<float>((tv / ntx) * kTile);
-  const float X = static_cast<float>(p % kTile);
-  const float Y = static_cast<float>(p / kTile);
-  const float XX = X * X, XY = X * Y, YY = Y * Y;
-
+  const int px = pixel_x(rect, lane), py = pixel_y(rect, lane);
+  const float X = static_cast<float>(px), Y = static_cast<float>(py);
   const int start = tile_start[t];
   const int count = tile_count[t];
+
+  // Lane l of warp w < kStageWarps stages row 32 w + l of each batch:
+  // `fetch` starts copying it a batch ahead, `stage` writes its cull mask
+  // and, if any bit is set, its coefficients.
+  auto fetch = [&](int b0) {
+    const int slot = warp * 32 + lane;
+    if (warp < kStageWarps && b0 + slot < count) {
+      copy_row_async(&raw[slot],
+                     pairs + static_cast<size_t>(start + b0 + slot) * 16);
+    }
+  };
+  auto stage = [&](int buf, int b0) {
+    const int slot = warp * 32 + lane;
+    if (warp < kStageWarps && b0 + slot < count) {
+      wait_rows();
+      const RawRow r = raw[slot];
+      const unsigned m = cull_bits(ellipse(r, ox, oy), band_bits);
+      mask[buf][slot] = m;
+      if (m != 0u) coef[buf][slot] = coefficients(r, ox, oy);
+    }
+  };
 
   float Tf = 1.0f, Tr = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
   bool live = true;  // this pixel still has Tf >= T_EPS
 
-  for (int base = 0; base < count; base += kBatch) {
-    // doubles as the barrier that protects `coef` from the previous batch
+  fetch(0);
+  stage(0, 0);
+  fetch(kBatch);
+  for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
+    // makes batch `buf` visible and frees buffer buf ^ 1 for the next one
     if (__syncthreads_count(live) == 0) break;
     const int n = min(kBatch, count - base);
-    for (int i = p; i < n; i += kPixels) {
-      const float* row = pairs + static_cast<size_t>(start + base + i) * 16;
-      const float4 f0 = *reinterpret_cast<const float4*>(row);      // mx my ca cb
-      const float4 f1 = *reinterpret_cast<const float4*>(row + 4);  // cc r g b
-      const float2 f2 = *reinterpret_cast<const float2*>(row + 8);  // opa depth
-      const float ml = f0.x - ox, nl = f0.y - oy;
-      const float ca = f0.z, cb = f0.w, cc = f1.x;
-      // fixed rounding: __f*_rn is never contracted, fmaf always fused —
-      // the order the plain version (and the JAX package's kernel on XLA's
-      // CPU backend) uses; near a tile edge the terms cancel by 100x
-      const float cbm = __fmul_rn(cb, ml);
-      float* k = coef + i * kCoef;
-      k[0] = __fsub_rn(
-          __fmul_rn(-0.5f, fmaf(__fmul_rn(ca, ml), ml,
-                                __fmul_rn(__fmul_rn(cc, nl), nl))),
-          __fmul_rn(cbm, nl));
-      k[1] = fmaf(cb, nl, __fmul_rn(ca, ml));
-      k[2] = fmaf(cc, nl, cbm);
-      k[3] = -0.5f * ca;
-      k[4] = -cb;
-      k[5] = -0.5f * cc;
-      k[6] = f2.x;   // opacity
-      k[7] = f1.y;   // r
-      k[8] = f1.z;   // g
-      k[9] = f1.w;   // b
-      k[10] = f2.y;  // depth
+    for (int c = 0; c < n && __any_sync(kFull, live); c += 32) {
+      // this warp's rows among these 32: those whose mask has its bit
+      const bool mine = c + lane < n && ((mask[buf][c + lane] >> rect) & 1u);
+      unsigned rows = __ballot_sync(kFull, mine);
+      while (rows) {
+        const int j = c + __ffs(rows) - 1;
+        rows &= rows - 1;
+        if (!live) continue;
+        const Coef k = coef[buf][j];
+        const float power = exponent(k, X, Y);
+        if (!(power <= kPowerEps)) continue;
+        const float raw_alpha = k.q1.z * expf(fminf(power, 0.0f));
+        if (!(raw_alpha >= kAlphaMin)) continue;
+        const float alpha = fminf(raw_alpha, kAlphaMax);
+        const float t_incl = Tf * (1.0f - alpha);
+        if (t_incl >= kTEps) {
+          const float w = alpha * Tf;
+          acc_r += w * k.q2.x;
+          acc_g += w * k.q2.y;
+          acc_b += w * k.q2.z;
+          acc_d += w * k.q1.w;
+          Tr = t_incl;
+        }
+        Tf = t_incl;
+        if (Tf < kTEps) live = false;
+      }
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < n; ++j) {
-      const float* k = coef + j * kCoef;
-      float power = fmaf(k[1], X, k[0]);
-      power = fmaf(k[2], Y, power);
-      power = fmaf(k[3], XX, power);
-      power = fmaf(k[4], XY, power);
-      power = fmaf(k[5], YY, power);
-      if (!(power <= kPowerEps)) continue;
-      const float raw = k[6] * expf(fminf(power, 0.0f));
-      if (!(raw >= kAlphaMin)) continue;
-      const float alpha = fminf(raw, kAlphaMax);
-      const float t_incl = Tf * (1.0f - alpha);
-      if (t_incl >= kTEps) {
-        const float w = alpha * Tf;
-        acc_r += w * k[7];
-        acc_g += w * k[8];
-        acc_b += w * k[9];
-        acc_d += w * k[10];
-        Tr = t_incl;
-      }
-      Tf = t_incl;
-      if (Tf < kTEps) {
-        live = false;
-        break;
-      }
+    if (base + kBatch < count) {
+      stage(buf ^ 1, base + kBatch);
+      fetch(base + 2 * kBatch);
     }
   }
+  wait_rows();  // a block that stopped early leaves no copy in flight
 
-  float* o = out + static_cast<size_t>(t) * 8 * kPixels + p;
+  float* o = out + static_cast<size_t>(t) * 8 * kPixels + py * kTile + px;
   o[0] = acc_r;
   o[kPixels] = acc_g;
   o[2 * kPixels] = acc_b;
@@ -144,18 +172,48 @@ forward_tiles_kernel(const float* __restrict__ pairs,
   o[7 * kPixels] = 0.0f;
 }
 
+// The cull masks of rows [n, 16] (row i in the tile at origin[i] = (ox,
+// oy)) over every warp rectangle: what staging stores, for tests.
+__global__ void cull_masks_kernel(const float* __restrict__ rows,
+                                  const float* __restrict__ origin,
+                                  unsigned* __restrict__ masks, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* p = rows + static_cast<size_t>(i) * 16;
+  RawRow r;
+  r.f0 = *reinterpret_cast<const float4*>(p);
+  r.f1 = *reinterpret_cast<const float4*>(p + 4);
+  r.f2 = *reinterpret_cast<const float2*>(p + 8);
+  masks[i] = cull_bits(ellipse(r, origin[2 * i], origin[2 * i + 1]), kFull);
+}
+
 }  // namespace
 
-// Plain C entry point for ctypes. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 on success).
+// Plain C entry point for ctypes. `order` lists the n_programs tiles in
+// launch order (tile order[i] is composited by blocks i * kBands ..
+// i * kBands + kBands - 1). Launches on `stream`, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
 extern "C" int forward_tiles_launch(const float* pairs, const int* tile_start,
-                                    const int* tile_count, float* out,
-                                    int n_programs, int ntx,
+                                    const int* tile_count, const int* order,
+                                    float* out, int n_programs, int ntx,
                                     int tiles_per_view, void* stream) {
   if (n_programs > 0) {
-    forward_tiles_kernel<<<n_programs, kPixels, 0,
+    forward_tiles_kernel<<<n_programs * kBands, kPixels / kBands, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        pairs, tile_start, tile_count, out, ntx, tiles_per_view);
+        pairs, tile_start, tile_count, order, out, ntx, tiles_per_view);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry point for tests: the cull masks staging gives rows [n, 16]
+// (16-byte aligned) in the tiles at origin [n, 2]. Launches on `stream`,
+// does not synchronise, returns cudaGetLastError().
+extern "C" int cull_masks_launch(const float* rows, const float* origin,
+                                 unsigned* masks, int n, void* stream) {
+  if (n > 0) {
+    cull_masks_kernel<<<(n + 255) / 256, 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(rows, origin,
+                                                             masks, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,7 +16,10 @@ pair stream. Rules (shared with the JAX package's dense oracle):
   0, 0.
 
 ``forward_tiles`` launches the CUDA kernel (``csrc/forward_tiles.cu``) for a
-CUDA tensor and takes the plain version only for a CPU tensor.
+CUDA tensor and takes the plain version only for a CPU tensor. The kernel
+skips a pair in a warp's 8 x 4 pixel rectangle only where the pair's alpha
+is 0 at every pixel of it (``cull_rects``, its PyTorch copy), so both give
+the same compositing; the plain version does not cull.
 """
 
 from __future__ import annotations
@@ -39,6 +42,18 @@ T_EPS = 1e-4
 POWER_EPS = 1e-3
 # elements of one step of the plain version (tiles x chunk x pixels)
 PLAIN_STEP_ELEMS = 1 << 25
+# slack of the kernels' cull (``cull_rects``) on the ellipse's q-threshold:
+# absolute, and relative to the magnitude of the exponent's expanded terms
+# (their f32 rounding). With no slack or the absolute term alone the rule
+# drops hits (tests/test_torch_raster_cull.py); the relative term alone
+# holds from 1e-7 on: 1e-5 leaves 100x
+CULL_ABS = 1e-2
+CULL_REL = 1e-5
+# a warp's pixel rectangle in the kernels (csrc/tile_common.cuh)
+RECT_W, RECT_H = 8, 4
+RECTS_X = TILE // RECT_W
+# the cull tests at most this many candidate rectangles exactly
+CULL_EXACT_MAX = 8
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "forward_tiles.cu"
 
@@ -46,9 +61,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "forward_tiles.cu"
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     fn = lib.forward_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.cull_masks_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+def launch_order(tile_count: torch.Tensor) -> torch.Tensor:
+    """The kernels' block order: tiles by descending segment length, so the
+    longest segments start first and do not end the grid alone."""
+    return torch.argsort(tile_count, descending=True).to(torch.int32)
 
 
 def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
@@ -57,8 +81,9 @@ def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
     """Composite every (view, tile) segment. Returns [n, 8, TILE^2] f32.
 
     pairs [budget, 16] f32; tile_start / tile_count [n] int32. CUDA tensors
-    launch the kernel (counted in ``forward_tiles.launches``); CPU tensors
-    run :func:`forward_tiles_plain` (``chunk`` sets its pair grouping).
+    launch the kernel (counted in ``forward_tiles.launches``): four blocks
+    per tile, longest segment first (``launch_order``); CPU tensors run
+    :func:`forward_tiles_plain` (``chunk`` sets its pair grouping).
     """
     if pairs.device.type == "cpu":
         return forward_tiles_plain(pairs, tile_start, tile_count, ntx=ntx,
@@ -80,11 +105,12 @@ def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
         raise ValueError("pairs must be 16-byte aligned")
     out = torch.empty((n, 8, TILE * TILE), dtype=torch.float32,
                       device=pairs.device)
+    order = launch_order(tile_count)
     lib = _library()
     stream = torch.cuda.current_stream(pairs.device).cuda_stream
     rc = lib.forward_tiles_launch(
         pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        out.data_ptr(), n, ntx, tiles_per_view, stream)
+        order.data_ptr(), out.data_ptr(), n, ntx, tiles_per_view, stream)
     if rc != 0:
         raise RuntimeError(f"forward_tiles kernel launch failed: cudaError {rc}")
     forward_tiles.launches += 1
@@ -131,6 +157,78 @@ def _alpha(feats, ox, oy, basis, row_ok):
     return alpha, power_ok
 
 
+def cull_rects(feats, ox, oy):
+    """The kernels' exact cull: [..., 32] bool per pair row and warp
+    rectangle of the tile (``rect_view``), False where no pixel of the
+    rectangle can get alpha > 0.
+
+    Mirror of ``cull_bits`` in ``csrc/tile_common.cuh``; the kernels skip a
+    pair in a warp whose bit is clear (tests and chip_smoke.py's counts use
+    this copy). feats [..., 16]; ox / oy broadcast to feats[..., 0].
+
+    alpha >= 1/255 needs q(d) = d^T C d <= 2 ln(255 opa) with d = pixel -
+    mean. The candidates are the rectangles that the ellipse's bounding box
+    at that threshold touches (widened by 1% + 0.01 px; every rectangle for
+    a conic whose determinant f32 does not resolve). Up to CULL_EXACT_MAX
+    candidates take the exact test: q's least value over the rectangle, 0
+    with the mean inside, else least on an edge at the clamped argmin
+    (binning's ``_rect_min_q``); more are all kept. The kernels' exponent
+    is the expanded tile-local quadratic, whose f32 terms are up to S =
+    a (|ml| + 32)^2 + 2 |b| (|ml| + 32)(|nl| + 32) + c (|nl| + 32)^2; its
+    rounding (and the test's) stays far below the slack CULL_ABS +
+    CULL_REL * S on the threshold. A conic that is not positive-definite
+    keeps every rectangle.
+    """
+    ml = (feats[..., F_MX] - ox)[..., None]
+    nl = (feats[..., F_MY] - oy)[..., None]
+    ca, cb, cc = (feats[..., f][..., None] for f in (F_CA, F_CB, F_CC))
+    det = ca * cc - cb * cb
+    pd = (ca > 0) & (cc > 0) & (det > 0)
+    qt = 2.0 * torch.log(255.0 * feats[..., F_OPA, None])
+    mx, my = ml.abs() + TILE, nl.abs() + TILE
+    scale = ca * mx * mx + 2.0 * cb.abs() * mx * my + cc * my * my
+    thresh = qt + CULL_ABS + CULL_REL * scale
+    rect = torch.arange(TILE, device=feats.device)
+    col, row = rect % RECTS_X, rect // RECTS_X
+    # candidates: the rectangles the widened bounding box touches
+    t = thresh / det
+    hx = torch.sqrt(t * cc) * 1.01 + 0.01
+    hy = torch.sqrt(t * ca) * 1.01 + 0.01
+    box = ((col >= torch.ceil((ml - hx - (RECT_W - 1.0)) / RECT_W))
+           & (col <= torch.floor((ml + hx) / RECT_W))
+           & (row >= torch.ceil((nl - hy - (RECT_H - 1.0)) / RECT_H))
+           & (row <= torch.floor((nl + hy) / RECT_H)))
+    cand = torch.where(det > 1e-4 * ca * cc, box, True)
+    # the exact test
+    x0 = (RECT_W * col).to(feats.dtype) - ml
+    y0 = (RECT_H * row).to(feats.dtype) - nl
+    x1, y1 = x0 + (RECT_W - 1.0), y0 + (RECT_H - 1.0)
+
+    def q(x, y):
+        return (ca * x + 2.0 * cb * y) * x + cc * y * y
+
+    def at_x(x):
+        return q(x, torch.minimum(torch.maximum(-cb / cc * x, y0), y1))
+
+    def at_y(y):
+        return q(torch.minimum(torch.maximum(-cb / ca * y, x0), x1), y)
+
+    qmin = torch.minimum(torch.minimum(at_x(x0), at_x(x1)),
+                         torch.minimum(at_y(y0), at_y(y1)))
+    inside = (x0 <= 0) & (x1 >= 0) & (y0 <= 0) & (y1 >= 0)
+    exact = torch.where(inside, 0.0, qmin) <= thresh
+    many = cand.sum(-1, keepdim=True) > CULL_EXACT_MAX
+    return ~pd | ((thresh >= 0) & cand & (many | exact))
+
+
+def rect_view(x):
+    """[..., TILE^2] per-pixel values (row-major tile) -> [..., 32, 32]:
+    (warp rectangle, lane). Rectangle r covers columns RECT_W (r % 4) + ..
+    and rows RECT_H (r // 4) + ..; lane l is its pixel (l % 8, l // 8)."""
+    y = x.unflatten(-1, (TILE // RECT_H, RECT_H, RECTS_X, RECT_W))
+    return y.transpose(-3, -2).flatten(-4, -3).flatten(-2, -1)
+
+
 def pixel_frame(n, tiles_per_view, ntx, dev):
     """Tile origins ox/oy [n,1] and the tile-local pixel basis
     [6, TILE^2] = (1, X, Y, X^2, XY, Y^2)."""
@@ -153,20 +251,28 @@ def segment_chunks(tile_start, tile_count, chunk):
     return start // chunk, off, count, n_chunks
 
 
-def work_counts(row_ok, t_excl, power_ok, alpha, contrib):
-    """Per-class counts (``WORK_CLASSES``) of one chunk step's (pair, pixel)
-    evaluations at pixels not yet saturated."""
+def work_counts(row_ok, t_excl, power_ok, alpha, contrib, kept):
+    """Counts (``WORK_CLASSES`` then ``WARP_CLASSES``) of one chunk step.
+    [a,K,P] masks; ``kept`` [a,K,32] is ``cull_rects``."""
     needed = row_ok[..., None] & (t_excl >= T_EPS)
     hit = needed & (alpha > 0)
+    slots = rect_view(needed).any(-1)                       # [a,K,rect]
+    empty = slots & rect_view(alpha == 0).all(-1)
     return torch.stack([(needed & ~power_ok).sum(),
                         (needed & power_ok & (alpha == 0)).sum(),
                         (hit & contrib).sum(),
-                        (hit & ~contrib).sum()])
+                        (hit & ~contrib).sum(),
+                        slots.sum(), empty.sum(), (slots & kept).sum()])
 
 
-# classes of the (pair, pixel) evaluations the kernel makes at pixels not yet
-# saturated, by how far down its inner loop each one runs
+# classes of the (pair, pixel) evaluations a kernel without a cull makes at
+# pixels not yet saturated, by how far down its inner loop each one runs
 WORK_CLASSES = ("power_cut", "floor_cut", "contributing", "saturating")
+# (pair, warp rectangle) slots: those a warp must visit (the pair is in the
+# segment and some pixel of the rectangle is not yet saturated), those where
+# no pixel of the rectangle gets alpha > 0 (the most an exact per-warp cull
+# can skip), and those ``cull_rects`` keeps
+WARP_CLASSES = ("warp_slots", "warp_slots_empty", "warp_slots_kept")
 
 
 def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
@@ -181,9 +287,10 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
 
     ``work``, if a dict, receives the count of each of ``WORK_CLASSES``: the
     (pair, pixel) evaluations at pixels not yet saturated — the work an
-    early-stopping kernel must do on these inputs — split into those cut by
-    a positive exponent, those cut by the 1/255 alpha floor, those that
-    contribute, and the last one of each pixel that saturates.
+    early-stopping kernel without a cull does on these inputs — split into
+    those cut by a positive exponent, those cut by the 1/255 alpha floor,
+    those that contribute, and the last one of each pixel that saturates;
+    and of each of ``WARP_CLASSES``.
     """
     dev = pairs.device
     n = tile_start.shape[0]
@@ -197,7 +304,8 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
     Tf = torch.ones((n, 1, npx), device=dev)
     Tr = torch.ones((n, 1, npx), device=dev)
     acc = torch.zeros((n, 4, npx), device=dev)
-    counts = torch.zeros(len(WORK_CLASSES), dtype=torch.int64, device=dev)
+    classes = WORK_CLASSES + WARP_CLASSES
+    counts = torch.zeros(len(classes), dtype=torch.int64, device=dev)
     # tiles go in groups so one step's [tiles, chunk, pixels] f64 temporaries
     # stay near 256 MB at the full 512^2 x 4-view shape
     group = max(1, PLAIN_STEP_ELEMS // (chunk * npx))
@@ -223,12 +331,13 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
             acc[act] += torch.einsum("akf,akp->afp", cols, w)
             if work is not None:
                 counts += work_counts(row_ok, t_excl, power_ok, alpha,
-                                      contrib)
+                                      contrib,
+                                      cull_rects(feats, ox[act], oy[act]))
             Tf[act] = t_incl[:, -1:]
             Tr[act] = torch.minimum(
                 Tr[act],
                 torch.where(contrib, t_incl, 1.0).amin(dim=1, keepdim=True))
     if work is not None:
-        work.update(zip(WORK_CLASSES, counts.tolist()))
+        work.update(zip(classes, counts.tolist()))
     zero = torch.zeros((n, 2, npx), device=dev)
     return torch.cat([acc, 1.0 - Tr, Tr, zero], dim=1)

@@ -2,9 +2,10 @@
 
 Each ``csrc/*.cu`` file exposes a plain C interface and compiles on its own
 into a shared library under ``build/kernels/`` at the repository root (listed
-in ``.gitignore``); the file name carries a hash of the source and the flags,
-so an edited source rebuilds. Libraries load with ``ctypes``. A failed build
-raises with the compiler's output: nothing falls back to a plain version.
+in ``.gitignore``); the file name carries a hash of the source, the headers
+(``*.cuh``) beside it and the flags, so an edited source or header
+rebuilds. Libraries load with ``ctypes``. A failed build raises with the
+compiler's output: nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def nvcc_path() -> str:
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K2_TOL, SMALL_GRAD_TOL, SMALL_LOSS_TOL, grad_tiles,
-                        hand_streams, k2_diff, small_train_step_diff)
+from chip_smoke import (K1_TOL, K2_TOL, SMALL_GRAD_TOL, SMALL_LOSS_TOL,
+                        _pair_rows, cull_cases, grad_tiles, hand_streams,
+                        k1_diff, k2_diff, small_train_step_diff)
 from sigman_release_torch.ops.rasterizer import backward_tiles as k2
 from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 from sigman_release_torch.ops.rasterizer import (
@@ -22,6 +23,7 @@ from sigman_release_torch.ops.rasterizer import (
     build_cov3d,
     rasterize_single,
 )
+from sigman_release_torch.ops.rasterizer.binning import ALPHA_MIN
 
 pytestmark = pytest.mark.cuda
 
@@ -115,6 +117,79 @@ def test_backward_tiles_kernel_matches_plain(cuda_device):
     assert (out[end - 5:end] == 0).all() and (out[:, 10:] == 0).all()
     # bit-for-bit repeatable: fixed reduction order, no atomics
     assert torch.equal(out, k2.backward_tiles(*args, fwd, grad, **kw))
+
+
+@pytest.mark.parametrize("case", ["staggered_saturation", "whole_tile",
+                                  "one_warp", "longest_first"])
+def test_kernels_match_plain_on_cull_cases(cuda_device, case):
+    """chip_smoke.cull_cases: pixel rows (and so warps) that saturate at
+    different depths, a Gaussian over the whole tile (every mask bit set),
+    one confined to one warp's rectangle, segments of 0-700 pairs launched
+    longest first. K1 within 1e-4 of its plain version, K2 within K2_TOL per
+    column and bit for bit repeatable."""
+    rng = np.random.default_rng(3)
+    pairs, start, count, ntx, tpv = cull_cases(rng)[case]
+    args = [torch.from_numpy(a).to(cuda_device) for a in (pairs, start, count)]
+    kw = dict(ntx=ntx, tiles_per_view=tpv, chunk=128)
+    fwd = k1.forward_tiles(*args, **kw)
+    ref = k1.forward_tiles_plain(*args, **kw)
+    grad = torch.from_numpy(grad_tiles(rng, start.shape[0])).to(cuda_device)
+    out = k2.backward_tiles(*args, fwd, grad, **kw)
+    ref2 = k2.backward_tiles_plain(*args, fwd, grad, **kw)
+    torch.cuda.synchronize()
+    assert k1_diff(fwd, ref) <= K1_TOL
+    assert k2_diff(out, ref2)[1] <= K2_TOL
+    assert torch.equal(out, k2.backward_tiles(*args, fwd, grad, **kw))
+    if case == "staggered_saturation":   # some rows saturate, some not
+        assert (ref[0, 5] < 2e-4).any() and (ref[0, 5] > 1e-3).any()
+    if case == "one_warp":
+        assert out[int(start[0]), :10].abs().max().item() > 0
+    if case == "longest_first":
+        order = k1.launch_order(args[2]).long().cpu()
+        assert (torch.from_numpy(count)[order].diff() <= 0).all()
+
+
+def test_cull_masks_on_the_card_cover_the_mirror(cuda_device):
+    """The kernels' cull (``cull_bits`` in csrc/tile_common.cuh, with its
+    fast intrinsics and nvcc's contractions), read through the test entry
+    point ``cull_masks_launch``, on seeded rows: means on and far off the
+    tile, sigmas from 0.2 to 80 px, strong anisotropy, opacities from the
+    floor up, 2% of conics not positive-definite. Each kernel mask is a
+    superset of the PyTorch mirror's (``cull_rects``, which the CPU tests
+    hold exact), every warp rectangle where ``_alpha`` gives a pixel
+    alpha > 0 keeps its bit, and most bits are clear."""
+    rng = np.random.default_rng(4)
+    k = 8192
+    rows = _pair_rows(rng.uniform(-120, 150, k), rng.uniform(-120, 150, k),
+                      np.exp(rng.uniform(np.log(0.2), np.log(80), k)),
+                      np.exp(rng.uniform(np.log(0.2), np.log(80), k)),
+                      rng.uniform(-0.99, 0.99, k),
+                      rng.uniform(ALPHA_MIN, 1.0, k), rng)
+    broken = rng.random(k) < 0.02               # mostly not positive-definite
+    rows[broken, 2:5] = rng.uniform(-1, 1, (int(broken.sum()), 3))
+    origin = (32 * rng.integers(0, 4, (k, 2))).astype(np.float32)
+    feats = torch.from_numpy(rows).to(cuda_device)
+    orig = torch.from_numpy(origin).to(cuda_device)
+    masks = torch.zeros(k, dtype=torch.int32, device=cuda_device)
+    rc = k1._library().cull_masks_launch(
+        feats.data_ptr(), orig.data_ptr(), masks.data_ptr(), k,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    bit = torch.arange(32, device=cuda_device)
+    kept = ((masks[:, None] >> bit) & 1).bool()             # [k, rect]
+    mirror = k1.cull_rects(feats, orig[:, 0], orig[:, 1])
+    assert not (mirror & ~kept).any(), (mirror & ~kept).any(-1).nonzero()[:5]
+    ox, oy = orig[:, :1], orig[:, 1:]
+    _, _, basis = k1.pixel_frame(1, 1, 1, cuda_device)
+    alpha, _ = k1._alpha(feats[:, None], ox, oy, basis,
+                         torch.ones((k, 1), dtype=torch.bool,
+                                    device=cuda_device))
+    hit = (k1.rect_view(alpha[:, 0]) > 0).any(-1)           # [k, rect]
+    assert not (hit & ~kept).any()
+    ca, cb, cc = feats[:, 2], feats[:, 3], feats[:, 4]
+    not_pd = ~((ca > 0) & (cc > 0) & (ca * cc - cb * cb > 0))
+    assert not_pd.sum().item() > 0 and kept[not_pd].all()
+    assert kept.float().mean().item() < 0.5
 
 
 def test_backward_tiles_rejects_bad_inputs(cuda_device):

@@ -222,7 +222,7 @@ def _sequential_work(pairs, start, count, ntx, tiles_per_view):
     pix = torch.arange(npx)
     X, Y = (pix % tbin.TILE).float(), (pix // tbin.TILE).float()
     basis = torch.stack([torch.ones_like(X), X, Y, X * X, X * Y, Y * Y])
-    work = dict.fromkeys(tfwd.WORK_CLASSES, 0)
+    work = dict.fromkeys(tfwd.WORK_CLASSES + tfwd.WARP_CLASSES, 0)
     tiles = np.zeros((len(start), 8, npx), np.float32)
     for t, (s0, c) in enumerate(zip(start, count)):
         tv = t % tiles_per_view
@@ -232,6 +232,8 @@ def _sequential_work(pairs, start, count, ntx, tiles_per_view):
         alpha, power_ok = tfwd._alpha(feats, ox, oy, basis,
                                       torch.ones((1, c), dtype=torch.bool))
         alpha, power_ok = alpha[0].numpy(), power_ok[0].numpy()
+        kept = tfwd.cull_rects(feats, ox, oy)[0].numpy()     # [c, rect]
+        rect_alpha = tfwd.rect_view(torch.from_numpy(alpha)).numpy()
         Tf = np.ones(npx, np.float32)
         Tr = np.ones(npx, np.float32)
         acc = np.zeros((4, npx), np.float32)
@@ -245,6 +247,11 @@ def _sequential_work(pairs, start, count, ntx, tiles_per_view):
             work["floor_cut"] += int((live & power_ok[j] & (a == 0)).sum())
             work["contributing"] += int(contrib.sum())
             work["saturating"] += int((hit & ~contrib).sum())
+            slots = tfwd.rect_view(torch.from_numpy(live)).numpy().any(1)
+            empty = slots & (rect_alpha[j] == 0).all(1)
+            work["warp_slots"] += int(slots.sum())
+            work["warp_slots_empty"] += int(empty.sum())
+            work["warp_slots_kept"] += int((slots & kept[j]).sum())
             acc += np.where(contrib, a * Tf, 0.0) * pairs[s0 + j, [5, 6, 7, 9],
                                                           None]
             Tr = np.where(contrib, t_incl, Tr)
