@@ -36,11 +36,25 @@ Phases (any failure exits non-zero before the final line):
              fill) and bounds;
 9. small train — one ``test_tiny`` generator step on the GPU against the
              CPU (same weights, batch and noise, TF32 off): loss and
-             gradients.
+             gradients;
+10. dit train — ``DiTTrainer`` at the ``dit`` preset's full width (DiT
+             d=2048 x 30 layers, patch 2 on the 16x64x64 latent, bf16,
+             per-block checkpointing; frozen ``vae_b``-geometry VAE encode
+             of 6 views of 9 channels at 512^2 and frozen conditioning
+             encoder at Sapiens-1B geometry, 1536 x 40 layers, on 512^2,
+             both f32) on 8
+             synthetic items, raw path: 3 training steps, one eval loss and
+             one sampling eval on a held-out item (30 CFG DDIM steps ->
+             VAE decode -> deform -> K1 render of 10 views at 512^2), K1's
+             launch count zeroed before; K1 against its plain version on
+             that eval's own pair stream;
+11. small dit — one ``test_tiny`` DiT step on the GPU against the CPU (same
+             weights, batch and draws, TF32 off): loss and gradients.
 
-Phases 2 and 6 also run ``cull_cases``; phases 4 and 8 print each stream's
-segment lengths and (pair, warp) slots and both bounds (this one: the hits
-plus a staging pass per row; without the cull: every needed evaluation).
+Phases 2 and 6 also run ``cull_cases``; phases 4, 8 and 10 print each
+stream's segment lengths and (pair, warp) slots and both bounds (this one:
+the hits plus a staging pass per row; without the cull: every needed
+evaluation). Each phase's wall seconds are printed at the end.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Needs no network and one card; exits
@@ -62,6 +76,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12          # f32 outside the tensor cores
+H100_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores
 # exp on the special-function units: 16 results per SM per clock against 256
 # f32 flops (128 FMA lanes) at the same clock
 H100_SFU_PER_S = H100_F32_FLOPS / 16
@@ -108,6 +123,8 @@ SMALL_GRAD_TOL = 1e-3
 DEVICE = "cuda"
 PRESET = "dit"
 TRAIN_PRESET = "vae_b"
+DIT_PRESET = "dit"
+DIT_STEPS = 3
 N_VERTS = 100_002               # -> 100,000 Gaussians (one per face)
 N_VIEWS = 4
 G_STEPS = 3
@@ -138,6 +155,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class PhaseClock:
+    """Wall seconds of each named phase, from its start to the next one's."""
+
+    def __init__(self):
+        self.marks = []
+
+    def start(self, name: str):
+        self.marks.append((name, time.perf_counter()))
+
+    def report(self):
+        ends = [t for _, t in self.marks[1:]] + [time.perf_counter()]
+        print("[phases] " + ", ".join(
+            f"{n} {e - t:.1f} s" for (n, t), e in zip(self.marks, ends)),
+            flush=True)
 
 
 def hand_streams(rng, chunk=128):
@@ -261,6 +294,33 @@ def k1_bytes(n_pairs, n_tiles):
     return n_pairs * K1_ROW_BYTES + 8 * n_tiles + n_tiles * 8 * 1024 * 4
 
 
+def hold_k1(pairs, tile_start, tile_count, kw):
+    """K1 against its plain version on one stream: the plain output, max
+    |kernel - plain|, the kernel's ms (mean of 20 by CUDA events), the plain
+    version's ms (one call), its per-class evaluation counts and both
+    bounds (``bounds``)."""
+    import torch
+
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+
+    out = k1.forward_tiles(pairs, tile_start, tile_count, **kw)
+    work = {}
+    t0 = time.perf_counter()
+    plain = k1.forward_tiles_plain(pairs, tile_start, tile_count, work=work,
+                                   **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = k1_diff(out, plain)
+    del out
+    ms = cuda_ms(lambda: k1.forward_tiles(pairs, tile_start, tile_count,
+                                          **kw), reps=20)
+    n_pairs = int(tile_count.sum())
+    new, old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
+                      k1_bytes(n_pairs, tile_start.numel()))
+    return {"plain": plain, "err": err, "ms": ms, "plain_ms": plain_ms,
+            "work": work, "n_pairs": n_pairs, "new": new, "old": old}
+
+
 def k1_diff(out, ref):
     """Max |kernel - plain| over the rgb, depth and alpha rows."""
     return (out[:, :5] - ref[:, :5]).abs().max().item()
@@ -359,16 +419,18 @@ def main():
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer.render import (
-        composite, finish, prepare_pairs)
+        finish, prepare_pairs)
     from sigman_release_torch.utils import cuda_build
     from sigman_release_torch.utils.timing import StageTimer
 
     dev = torch.device(DEVICE)
+    clock = PhaseClock()
     card = gpu_name_and_power()
     print(f"[smoke] card: {card}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}", flush=True)
 
     # ---- 1. build -----------------------------------------------------------
+    clock.start("build")
     t0 = time.perf_counter()
     cuda_build.build([k1.SOURCE, k2.SOURCE])
     print(f"[build] {len(cuda_build.build_logs)} source(s) built in "
@@ -377,6 +439,7 @@ def main():
         print(f"[build] {os.path.relpath(src, ROOT)}:\n{log.strip()}")
 
     # ---- 2. K1 on hand-made streams -------------------------------------------
+    clock.start("k1")
     pairs, start, count = hand_streams(np.random.default_rng(0))
     args = (torch.from_numpy(pairs).to(dev), torch.from_numpy(start).to(dev),
             torch.from_numpy(count).to(dev))
@@ -403,6 +466,7 @@ def main():
             fail(f"forward_tiles disagrees with its plain version on {name}")
 
     # ---- 3. the main path at full width ---------------------------------------
+    clock.start("main")
     cfg = PRESETS[PRESET]
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -457,35 +521,28 @@ def main():
         fail("the avatar is not visible in any view")
 
     # ---- 4. the render stage through the plain version -------------------------
+    clock.start("plain")
     rc = pipe.renderer.raster_cfg
     with torch.no_grad():
         pos, cov3d, rgb, opa = pipe.renderer.prepare(res["gaussians"])
         stream = prepare_pairs(pos[0], cov3d[0], rgb[0], opa[0], cv.to(dev),
                                cvp.to(dev), rc)
-        tiles = composite(stream, rc)
         kw = dict(ntx=rc.ntx, tiles_per_view=rc.n_tiles, chunk=rc.chunk)
-        work = {}
-        t0 = time.perf_counter()
-        plain = k1.forward_tiles_plain(
-            stream.pairs, stream.tile_start, stream.tile_count, work=work,
-            **kw)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        k1_err = k1_diff(tiles, plain)
+        held = hold_k1(stream.pairs, stream.tile_start, stream.tile_count, kw)
         bg = torch.ones(3, device=dev)
-        img_plain = finish(plain, stream.overflow, N_VIEWS, bg, rc)["image"]
+        img_plain = finish(held["plain"], stream.overflow, N_VIEWS, bg,
+                           rc)["image"]
         img_err = (img_plain - render["image"][0]).abs().max().item()
-        k1_ms = cuda_ms(lambda: composite(stream, rc), reps=20)
-    n_pairs = int(stream.tile_count.sum())
-    k1_new, k1_old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
-                            k1_bytes(n_pairs, stream.tile_start.numel()))
-    k1_bound, k1_by = k1_new[:2]
-    print(f"[plain] main-path stream: {n_pairs} pairs in "
-          f"{stream.tile_count.numel()} tiles; evaluations {work}; "
+    k1_err, k1_ms, plain_ms = held["err"], held["ms"], held["plain_ms"]
+    k1_bound, k1_by = held["new"][:2]
+    k1_bound_old = held["old"][0]
+    print(f"[plain] main-path stream: {held['n_pairs']} pairs in "
+          f"{stream.tile_count.numel()} tiles; evaluations {held['work']}; "
           f"max |kernel - plain| {k1_err:.3e}; image max diff {img_err:.3e}")
-    print(f"[plain] serving stream: {stream_text(stream.tile_count, work)}")
+    print(f"[plain] serving stream: "
+          f"{stream_text(stream.tile_count, held['work'])}")
     print(f"[plain] forward_tiles {k1_ms:.4f} ms, plain {plain_ms:.1f} ms, "
-          f"{bound_text(k1_ms, k1_new, k1_old)}", flush=True)
+          f"{bound_text(k1_ms, held['new'], held['old'])}", flush=True)
     if not k1_err <= K1_TOL:
         fail(f"forward_tiles disagrees with its plain version on the main "
              f"path's stream: {k1_err}")
@@ -493,6 +550,7 @@ def main():
         fail(f"image through the plain version differs by {img_err}")
 
     # ---- 5. test_tiny on the GPU against the CPU --------------------------------
+    clock.start("small")
     small = PRESETS["test_tiny"]
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False       # f32 convs on both sides
@@ -523,37 +581,45 @@ def main():
     if not small_err <= SMALL_TOL:
         fail(f"test_tiny path on the GPU differs from the CPU by {small_err}")
 
-    del pipe, res, render, stream, tiles, plain
+    del pipe, res, render, stream, held
     torch.cuda.empty_cache()
-    train = train_phases(dev, body, template)
+    train = train_phases(dev, body, template, clock)
+    dit = dit_phases(dev, body, template, clock)
+    clock.report()
 
     kernels = [{
         "name": "forward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/forward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
-        "launches": launches + train["k1_launches"],
+        "launches": launches + train["k1_launches"] + dit["k1_launches"],
         "launches_by_path": {"serve": launches,
-                             "train": train["k1_launches"]},
+                             "train": train["k1_launches"],
+                             "dit_train": dit["k1_launches"]},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": k1_bound,
         "bound_by": k1_by,
-        "bound_ms_without_cull": k1_old[0],
+        "bound_ms_without_cull": k1_bound_old,
         "library_ms": None,
         "train": {"ms": train["k1_ms"], "plain_ms": train["k1_plain_ms"],
                   "bound_ms": train["k1_bound"],
                   "bound_ms_without_cull": train["k1_bound_old"],
                   "max_abs_err": train["k1_err"]},
+        "dit_train": {"ms": dit["k1_ms"], "plain_ms": dit["k1_plain_ms"],
+                      "bound_ms": dit["k1_bound"],
+                      "bound_ms_without_cull": dit["k1_bound_old"],
+                      "max_abs_err": dit["k1_err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
         "launches": train["k2_launches"],
-        "launches_by_path": {"serve": 0, "train": train["k2_launches"]},
+        "launches_by_path": {"serve": 0, "train": train["k2_launches"],
+                             "dit_train": 0},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -611,7 +677,7 @@ def small_train_step_diff(dev):
     return abs(lg - lc) / abs(lc), ((gg - gc).norm() / gc.norm()).item()
 
 
-def train_phases(dev, body, template):
+def train_phases(dev, body, template, clock):
     """Phases 6-9; returns the numbers the kernels line needs."""
     import torch
 
@@ -623,6 +689,7 @@ def train_phases(dev, body, template):
     from sigman_release_torch.utils.timing import StageTimer
 
     # ---- 6. K2 on hand-made streams -------------------------------------------
+    clock.start("k2")
     rng = np.random.default_rng(1)
     pairs, start, count = hand_streams(rng)
     args = tuple(torch.from_numpy(a).to(dev) for a in (pairs, start, count))
@@ -656,6 +723,7 @@ def train_phases(dev, body, template):
                  f"itself on {name}")
 
     # ---- 7. vae_b training steps at full width ----------------------------------
+    clock.start("train")
     cfg = PRESETS[TRAIN_PRESET]
     t0 = time.perf_counter()
     trainer, batch = synthetic_setup(cfg, device=dev, body_model=body,
@@ -736,6 +804,7 @@ def train_phases(dev, body, template):
     del snap, before
 
     # ---- 8. K1 and K2 on the training step's own stream -----------------------
+    clock.start("k2 main")
     a, kw = captured["args"], captured["kw"]
     pairs8, ts8, tc8 = a[:3]
     with torch.no_grad():
@@ -770,18 +839,10 @@ def train_phases(dev, body, template):
         # rows the kernel must write: those with a nonzero gradient
         n_written = int((out[:, :10] != 0).any(dim=1).sum())
         del out, buf
-        fwd8 = k1.forward_tiles(pairs8, ts8, tc8, **kw)
-        t0 = time.perf_counter()
-        ref = k1.forward_tiles_plain(pairs8, ts8, tc8, **kw)
-        torch.cuda.synchronize()
-        k1_plain_ms = (time.perf_counter() - t0) * 1e3
-        k1_err = k1_diff(fwd8, ref)
-        del fwd8, ref
-        k1_ms = cuda_ms(lambda: k1.forward_tiles(pairs8, ts8, tc8, **kw),
-                        reps=20)
-    n_pairs, n_tiles = int(tc8.sum()), ts8.numel()
-    k1_new, k1_old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
-                            k1_bytes(n_pairs, n_tiles))
+        held = hold_k1(pairs8, ts8, tc8, kw)
+    k1_err, k1_ms, k1_plain_ms = held["err"], held["ms"], held["plain_ms"]
+    k1_new, k1_old = held["new"], held["old"]
+    n_pairs, n_tiles = held["n_pairs"], ts8.numel()
     print(f"[k1 train] forward_tiles on the training stream {k1_ms:.4f} ms, "
           f"plain {k1_plain_ms:.1f} ms, max |kernel - plain| {k1_err:.3e}; "
           f"{bound_text(k1_ms, k1_new, k1_old)}", flush=True)
@@ -812,10 +873,11 @@ def train_phases(dev, body, template):
     if not k2_rel <= K2_TOL:
         fail(f"backward_tiles disagrees with its plain version on the "
              f"training stream: {k2_rel}")
-    del trainer, batch, captured, a
+    del trainer, batch, captured, a, held
     torch.cuda.empty_cache()
 
     # ---- 9. test_tiny G step on the GPU against the CPU ---------------------
+    clock.start("small train")
     loss_rel, grad_rel = small_train_step_diff(dev)
     print(f"[small train] test_tiny G step GPU vs CPU: loss relative "
           f"{loss_rel:.3e}, gradient relative L2 {grad_rel:.3e}", flush=True)
@@ -829,6 +891,191 @@ def train_phases(dev, body, template):
             "k2_bound_old": k2_old[0], "k1_ms": k1_ms,
             "k1_plain_ms": k1_plain_ms, "k1_err": k1_err,
             "k1_bound": k1_new[0], "k1_bound_old": k1_old[0]}
+
+
+def small_dit_step_diff(dev):
+    """One ``test_tiny`` DiT step on ``dev`` and on the CPU from the same
+    weights, batch (two synthetic items, raw path) and draws, TF32 off:
+    (loss relative difference, gradient relative L2 difference). With two
+    accumulation micro-steps the step leaves its gradients in place."""
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.inference import random_weights_
+    from sigman_release_torch.models.vae import VAEModel
+    from sigman_release_torch.training.dit_trainer import (
+        RAW_KEYS, DiTTrainer, build_on, make_encoder)
+
+    cfg = PRESETS["test_tiny"].replace(gradient_accumulation_steps=2,
+                                       noised_condition_dropout=0.5)
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        trainers = []
+        for d in ("cpu", dev):
+            gen = torch.Generator().manual_seed(3)
+            vae = random_weights_(VAEModel(cfg), gen)
+            enc = build_on("cpu", lambda: make_encoder(cfg), gen)
+            trainers.append(DiTTrainer(cfg, vae, enc, device=d))
+        cpu, gpu = trainers
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        data = SyntheticAvatarDataset(cfg, n_items=2)
+        raw = {k: np.stack([data[i][k] for i in range(2)]) for k in RAW_KEYS}
+        rng = np.random.default_rng(5)
+        q, c = cfg.uv_query_size, cfg.latent_channels
+        draws = {
+            "enc_noise": rng.normal(size=(2, q, q, c)).astype(np.float32),
+            "t": np.array([37, 912]),
+            "noise": rng.normal(size=(2, c, q, q)).astype(np.float32),
+            "drop": np.array([False, True]).reshape(2, 1, 1, 1)}
+        draws = {k: torch.from_numpy(v) for k, v in draws.items()}
+        lc, lg = (tr.train_step(tr.to_device(raw), draws)["loss"].item()
+                  for tr in (cpu, gpu))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+    gc = torch.cat([p.grad.flatten() for p in cpu.model.parameters()])
+    gg = torch.cat([p.grad.flatten() for p in gpu.model.parameters()]).cpu()
+    return abs(lg - lc) / abs(lc), ((gg - gc).norm() / gc.norm()).item()
+
+
+def dit_phases(dev, body, template, clock):
+    """Phases 10-11; returns the numbers the kernels line needs."""
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.training.dit_trainer import (
+        step_flops, synthetic_setup)
+    from sigman_release_torch.utils.timing import StageTimer
+
+    # ---- 10. dit training steps at full width -------------------------------
+    clock.start("dit train")
+    cfg = PRESETS[DIT_PRESET]
+    t0 = time.perf_counter()
+    trainer, batch, eval_batch = synthetic_setup(
+        cfg, device=dev, body_model=body, template=template)
+    torch.cuda.synchronize()
+    dit = trainer.model
+    n_dit = sum(p.numel() for p in dit.parameters())
+    n_enc = sum(p.numel() for p in trainer.encoder.parameters())
+    n_vae = sum(p.numel() for p in trainer.vae.parameters())
+    print(f"[dit] set-up {time.perf_counter() - t0:.1f} s: DiT "
+          f"{n_dit / 1e9:.3f} B params (d={cfg.hidden_dim} x "
+          f"{cfg.num_layers}), encoder {n_enc / 1e9:.3f} B "
+          f"({len(trainer.encoder.blocks)} layers at {cfg.text_embed_dim}), "
+          f"VAE {n_vae / 1e6:.1f} M, frozen; batch "
+          f"{ {k: tuple(v.shape) for k, v in batch.items()} }, "
+          f"DiT {cfg.mixed_precision}, encodes f32, checkpointing "
+          f"{cfg.gradient_checkpointing}", flush=True)
+    blocks = dit.transformer_blocks
+    watch = {"patch_embed.proj": dit.patch_embed.proj.weight,
+             "proj_out": dit.proj_out.weight,
+             "block 0 to_q": blocks[0].attn1.to_q.weight,
+             f"block {len(blocks) - 1} ff.net.2": blocks[-1].ff.net[2].weight}
+    before = {n: w.detach().clone() for n, w in watch.items()}
+    captured = {}
+    real_forward = render_lib.forward_tiles
+
+    def capturing_forward(*a, **kw):       # keeps the eval render's K1 inputs
+        captured.update(args=a, kw=kw)
+        return real_forward(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    k1.forward_tiles.launches = 0
+    step_ms, spans, losses = [], [], []
+    for i in range(DIT_STEPS):
+        timer = StageTimer(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(batch, timer=timer)["loss"].item()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        spans.append(timer.seconds)
+        losses.append(loss)
+        print(f"[dit] step {i + 1}: {step_ms[-1]:.1f} ms, loss {loss:.6f}, "
+              f"lr {trainer.lr_at(trainer.updates - 1):.3e}", flush=True)
+        if not np.isfinite(loss):
+            fail(f"non-finite loss in DiT step {i + 1}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    delta = {n: (w.detach() - before[n]).abs().max().item()
+             for n, w in watch.items()}
+    del before
+    med = statistics.median(step_ms[1:])
+    total = step_ms[-1] / 1e3
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)"
+                       for k, v in spans[-1].items())
+    grid = cfg.input_size // trainer.encoder.patch_proj.stride[0]
+    flops = step_flops(cfg, batch["input"].shape[0], (grid // 4) ** 2)
+    fwd_bwd = spans[-1]["dit_fwd_bwd"]
+    print(f"[dit] step median of steps 2-{DIT_STEPS}: {med:.1f} ms; step "
+          f"{DIT_STEPS} spans: {stages}")
+    print(f"[dit] peak memory {peak:.2f} GiB; max |param change| after step "
+          f"{DIT_STEPS}: {delta}")
+    print(f"[dit] model FLOPs per step {flops['model']:.4e} (6 N tokens + "
+          f"attention), {flops['with_recompute']:.4e} with the recompute: "
+          f"{100 * flops['model'] / (med / 1e3) / H100_BF16_FLOPS:.2f}% of "
+          f"the dense bf16 peak over the step median, "
+          f"{100 * flops['with_recompute'] / fwd_bwd / H100_BF16_FLOPS:.2f}% "
+          f"(with the recompute) over step {DIT_STEPS}'s dit_fwd_bwd span",
+          flush=True)
+    for n, d in delta.items():
+        if not d > 0:
+            fail(f"the DiT steps did not move {n}")
+    eval_loss = trainer.eval_loss(eval_batch).item()
+    render_lib.forward_tiles = capturing_forward
+    timer = StageTimer(dev)
+    try:
+        t0 = time.perf_counter()
+        ev = trainer.sample_eval(eval_batch, timer=timer,
+                                 vis_path=os.path.join(ROOT, "chiprun_out",
+                                                       "dit_sample.png"))
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - t0
+    finally:
+        render_lib.forward_tiles = real_forward
+    k1_dit = k1.forward_tiles.launches
+    stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
+                       timer.seconds.items())
+    print(f"[dit] eval loss {eval_loss:.6f}; sample_eval "
+          f"({cfg.num_inference_steps} CFG steps, {cfg.num_views} views at "
+          f"{cfg.output_size}^2) {ev_s * 1e3:.1f} ms: {stages}; sample PSNR "
+          f"{ev['sample_psnr']:.4f}; forward_tiles launches {k1_dit}",
+          flush=True)
+    if not (np.isfinite(eval_loss) and np.isfinite(ev["sample_psnr"])):
+        fail(f"non-finite eval: loss {eval_loss}, {ev}")
+    if k1_dit < 1:
+        fail("the DiT path did not launch forward_tiles")
+    a, kw = captured["args"], captured["kw"]
+    with torch.no_grad():
+        held = hold_k1(*a[:3], kw)
+    print(f"[k1 dit] forward_tiles on the sampling eval's stream "
+          f"({held['n_pairs']} pairs in {a[1].numel()} tiles) "
+          f"{held['ms']:.4f} ms, plain {held['plain_ms']:.1f} ms, max "
+          f"|kernel - plain| {held['err']:.3e}; "
+          f"{bound_text(held['ms'], held['new'], held['old'])}", flush=True)
+    print(f"[k1 dit] stream: {stream_text(a[2], held['work'])}")
+    if not held["err"] <= K1_TOL:
+        fail(f"forward_tiles disagrees with its plain version on the DiT "
+             f"sampling eval's stream: {held['err']}")
+    del trainer, batch, eval_batch, captured, a, held["plain"]
+    torch.cuda.empty_cache()
+
+    # ---- 11. test_tiny DiT step on the GPU against the CPU -------------------
+    clock.start("small dit")
+    loss_rel, grad_rel = small_dit_step_diff(dev)
+    print(f"[small dit] test_tiny DiT step GPU vs CPU: loss relative "
+          f"{loss_rel:.3e}, gradient relative L2 {grad_rel:.3e}", flush=True)
+    if not loss_rel <= SMALL_LOSS_TOL or not grad_rel <= SMALL_GRAD_TOL:
+        fail(f"test_tiny DiT step on the GPU differs from the CPU: loss "
+             f"{loss_rel}, gradient {grad_rel}")
+    return {"k1_launches": k1_dit, "k1_err": held["err"], "k1_ms": held["ms"],
+            "k1_plain_ms": held["plain_ms"], "k1_bound": held["new"][0],
+            "k1_bound_old": held["old"][0]}
 
 
 if __name__ == "__main__":

@@ -13,16 +13,22 @@ module:
                 versions, one autograd Function around them
   body/         SMPL-X, LBS, template assets, Gaussian deformer
   models/       VAE (encoder, bottleneck, decoder, heads), DiT, ViT encoder
-  diffusion/    DDIM scheduler and the CFG sampling loop
+                (Sapiens-1B geometry with learned positions)
+  diffusion/    DDIM scheduler, the CFG sampling loop, the flow scheduler
   losses/       L1 + LPIPS + KL + hinge GAN, PSNR / SSIM
   data/         synthetic avatar dataset, augmentation, loader
-  training/     VAETrainer (G/D steps, AdamW), step profiler
+  training/     VAETrainer (G/D steps, AdamW), LatentRenderer (decode ->
+                deform -> render), DiTTrainer (frozen VAE and encoder, v
+                prediction, warmup-cosine AdamW), step profiler
   renderer.py   GaussianRenderer (KNN base scale -> covariance -> rasterize)
-  convert.py    Flax parameter trees -> this package's state_dicts
+  convert.py    Flax parameter trees -> this package's state_dicts; Sapiens
+                weights -> the conditioning encoder
   inference.py  image -> avatar entry point (``python -m
                 sigman_release_torch.inference``)
   train_vae.py  VAE training entry point (``python -m
                 sigman_release_torch.train_vae``)
+  train_dit.py  DiT training entry point (``python -m
+                sigman_release_torch.train_dit``)
 
 The package imports neither JAX nor anything of the JAX package.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they

@@ -1,9 +1,11 @@
-"""Flax parameter trees -> this package's ``state_dict``s.
+"""Flax parameter trees -> this package's ``state_dict``s, and Sapiens
+weights -> the conditioning encoder.
 
 Takes the JAX package's parameter trees as nested dicts of numpy arrays (for
 example ``np.asarray`` mapped over each leaf) and returns ``state_dict``s for
 the VAE (decode side alone, or encoder + bottleneck + decoder + heads), the
-DiT, the ViT conditioning encoder, LPIPS and the PatchGAN discriminator:
+DiT, the ViT conditioning encoder (sincos or learned positions), LPIPS and
+the PatchGAN discriminator:
 
 * conv kernels HWIO -> OIHW, 3D conv kernels DHWIO -> OIDHW,
 * Dense kernels ``[in, out]`` -> Linear weights ``[out, in]``,
@@ -13,10 +15,19 @@ DiT, the ViT conditioning encoder, LPIPS and the PatchGAN discriminator:
 
 Every parameter of the target module must be found with its shape;
 anything missing or mismatched raises.
+
+``convert_sapiens`` (the counterpart of ``scripts/convert_sapiens.py``) maps
+an mmpretrain-style ViT ``state_dict`` (``patch_embed.projection``,
+``pos_embed``, ``layers.{i}.ln1 / attn.qkv / attn.proj / ln2 /
+ffn.layers.0.0 / ffn.layers.1``, the final ``ln1``, under any prefix) onto
+``models.encoders.sapiens_1b_encoder`` or any learned-position
+``ViTFeatureEncoder``; ``load_sapiens_source`` reads a torchscript file or a
+saved ``state_dict``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict, Tuple
 
 import numpy as np
@@ -211,10 +222,12 @@ def dit_key_map(n_layers: int) -> KeyMap:
 
 
 def vit_key_map(depth: int) -> KeyMap:
-    """Port ``ViTFeatureEncoder`` keys -> Flax ``ViTFeatureEncoder`` paths."""
+    """Port ``ViTFeatureEncoder`` keys -> Flax ``ViTFeatureEncoder`` paths
+    (``pos_embed`` is read only by a learned-position encoder)."""
     m: KeyMap = {}
     p = ("params",)
     _conv_entry(m, "patch_proj", p + ("patch_proj",))
+    m["pos_embed"] = (p + ("pos_embed",), _same)
     for i in range(depth):
         t, f = f"blocks.{i}", f"blocks_{i}"
         _norm_entry(m, f"{t}.ln1", p + (f"{f}_ln1",))
@@ -288,3 +301,103 @@ def convert_lpips(tree, module):
 
 def convert_disc(tree, module):
     return convert(tree, module, disc_key_map(len(module.norms)))
+
+
+# mmpretrain ViT key patterns (any prefix): (regex, kind); group 1 is the
+# layer index. The layer rules come before the final norm's.
+SAPIENS_RULES = [
+    (r"patch_embed\.proj(?:ection)?\.(weight|bias)$", "patch"),
+    (r"pos_embed$", "pos_embed"),
+    (r"layers?\.(\d+)\.(?:ln|norm)1\.(weight|bias)$", "ln1"),
+    (r"layers?\.(\d+)\.attn\.qkv\.(weight|bias)$", "qkv"),
+    (r"layers?\.(\d+)\.attn\.proj\.(weight|bias)$", "attn.out"),
+    (r"layers?\.(\d+)\.(?:ln|norm)2\.(weight|bias)$", "ln2"),
+    (r"layers?\.(\d+)\.(?:ffn\.layers\.0\.0|mlp\.fc1)\.(weight|bias)$",
+     "ffn1"),
+    (r"layers?\.(\d+)\.(?:ffn\.layers\.1|mlp\.fc2)\.(weight|bias)$",
+     "ffn2"),
+    (r"(?:^|\.)(?:ln1|norm|ln)\.(weight|bias)$", "norm_out"),
+]
+
+
+def load_sapiens_source(path: str) -> Dict[str, np.ndarray]:
+    """A Sapiens checkpoint -> {key: array}: a torchscript file (``.pt2``,
+    ``.pt``, ``.ts``) through ``torch.jit.load``, else a saved
+    ``state_dict`` (or ``{"state_dict": ...}``) through ``torch.load``."""
+    if path.endswith((".pt2", ".pt", ".ts")):
+        try:
+            module = torch.jit.load(path, map_location="cpu")
+        except RuntimeError:      # not torchscript: a pickled state_dict
+            pass
+        else:
+            return {k: v.detach().numpy()
+                    for k, v in module.state_dict().items()}
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: np.asarray(v.detach().numpy() if hasattr(v, "detach") else v)
+            for k, v in sd.items()}
+
+
+def convert_sapiens(sd: Dict[str, np.ndarray], module: nn.Module,
+                    verbose: bool = False):
+    """An mmpretrain-style ViT ``state_dict`` -> ``module``'s (a
+    learned-position ``ViTFeatureEncoder``). ``qkv`` splits into query /
+    key / value; a ``pos_embed`` one row longer than the module's loses its
+    class-token row. Returns (state_dict, stats): ``stats`` lists the
+    source keys no rule matched (``unmatched``), the module's parameters no
+    source key filled (``missing``) and shape mismatches (``mismatches``);
+    the state_dict holds what was converted."""
+    target = module.state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    mismatches, unmatched = [], []
+
+    def put(name, w):
+        w = np.asarray(w, np.float32)
+        if name not in target:
+            mismatches.append(f"{name}: not a parameter of the module")
+        elif tuple(w.shape) != tuple(target[name].shape):
+            mismatches.append(f"{name}: {w.shape} vs "
+                              f"{tuple(target[name].shape)}")
+        else:
+            out[name] = torch.from_numpy(np.ascontiguousarray(w))
+
+    for key, w in sd.items():
+        for pattern, kind in SAPIENS_RULES:
+            m = re.search(pattern, key)
+            if m is None:
+                continue
+            w = np.asarray(w)
+            groups = m.groups()
+            leaf = groups[-1] if groups else None
+            block = f"blocks.{groups[0]}." if len(groups) == 2 else ""
+            if kind == "patch":
+                put(f"patch_proj.{leaf}", w)
+            elif kind == "pos_embed":
+                n = target["pos_embed"].shape[1] if "pos_embed" in target \
+                    else None
+                put("pos_embed", w[:, 1:] if w.shape[1] == (n or 0) + 1
+                    else w)
+            elif kind == "qkv":
+                for name, part in zip(("query", "key", "value"),
+                                      np.split(w, 3, axis=0)):
+                    put(f"{block}attn.{name}.{leaf}", part)
+            else:
+                put(f"{block}{kind}.{leaf}", w)
+            break
+        else:
+            unmatched.append(key)
+    missing = sorted(k for k in target if k not in out)
+    stats = {"converted": len(out), "mismatches": mismatches,
+             "unmatched": sorted(unmatched), "missing": missing}
+    if verbose:
+        print(f"[sapiens] {len(out)} converted, {len(mismatches)} "
+              f"mismatches, {len(unmatched)} unmatched source keys, "
+              f"{len(missing)} parameters missing", flush=True)
+        for line in mismatches[:20]:
+            print("  mismatch:", line)
+        for line in stats["unmatched"][:40]:
+            print("  unmatched (dropped):", line)
+        for line in missing[:20]:
+            print("  missing:", line)
+    return out, stats

@@ -6,10 +6,12 @@ rescale, trailing spacing.
 * optional SNR shift: ``a' = a / (s - (s-1) a)``,
 * zero-terminal-SNR rescale of ``sqrt(alphas_cumprod)``,
 * "trailing" inference timesteps: ``round(arange(T, 0, -T/n)) - 1``,
-* deterministic DDIM step (eta = 0) with ``set_alpha_to_one``.
+* deterministic DDIM step (eta = 0) with ``set_alpha_to_one``,
+* the training side: ``add_noise`` (q(x_t | x_0)), the v target and the
+  DiT trainer's loss weights ``1 / (1 - abar_t)``.
 
 The tables are built in float64 numpy and kept as float32 tensors; the step
-computes in float32.
+and the training side compute in float32.
 """
 
 from __future__ import annotations
@@ -83,6 +85,32 @@ class DDIMScheduler:
             timestep_spacing=cfg.timestep_spacing,
             device=device,
         )
+
+    # ---- training ----------------------------------------------------------
+
+    def _abar(self, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        """abar_t for int timesteps [B], shaped [B, 1, ...] to ``ndim``."""
+        a = self.alphas_cumprod.to(t.device)[t]
+        return a.reshape((-1,) + (1,) * (ndim - 1))
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor,
+                  t: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0): sqrt(abar_t) x0 + sqrt(1 - abar_t) noise; t [B] int."""
+        a = self._abar(t, x0.ndim)
+        return torch.sqrt(a) * x0 + torch.sqrt(1.0 - a) * noise
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        """v target: sqrt(abar_t) noise - sqrt(1 - abar_t) x0."""
+        a = self._abar(t, x0.ndim)
+        return torch.sqrt(a) * noise - torch.sqrt(1.0 - a) * x0
+
+    def snr_weights(self, t: torch.Tensor) -> torch.Tensor:
+        """The DiT trainer's loss weights 1 / (1 - abar_t), [B] f32 (1 at
+        the zero-SNR last step, ~1.2e3 at t = 0)."""
+        return 1.0 / (1.0 - self.alphas_cumprod.to(t.device)[t])
+
+    # ---- sampling ----------------------------------------------------------
 
     def timesteps(self, num_inference_steps: int) -> list:
         """The inference timesteps, high to low, as Python ints."""

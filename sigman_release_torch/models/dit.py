@@ -13,7 +13,10 @@ the JAX package's ``models/dit.py``).
 Parameter names follow the reference checkpoint (``transformer_blocks.{i}.
 attn1.to_q`` ...). Attention is ``F.scaled_dot_product_attention`` (plain
 XLA attention in the JAX package). The model computes in the dtype of its
-parameters; ``forward`` casts its inputs to it.
+parameters; ``forward`` casts its inputs to it. With
+``cfg.gradient_checkpointing`` each block is recomputed in the backward
+(the JAX package's per-block remat) whenever gradients are being recorded;
+the blocks draw no random numbers, so the recompute is exact.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sigman_release_torch.config import Config
 
@@ -279,8 +283,13 @@ class DiTModel(nn.Module):
         if c.use_rotary_positional_embeddings:
             rope = tuple(torch.as_tensor(a, device=latent.device)
                          for a in rope_2d(c.attention_head_dim, gh, gw))
+        remat = c.gradient_checkpointing and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            image, cond = block(image, cond, temb, rope)
+            if remat:
+                image, cond = checkpoint(block, image, cond, temb, rope,
+                                         use_reentrant=False)
+            else:
+                image, cond = block(image, cond, temb, rope)
 
         joint = self.norm_final(torch.cat([cond, image], dim=1))
         image = self.norm_out(joint[:, cond.shape[1]:], temb)

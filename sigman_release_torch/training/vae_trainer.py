@@ -23,6 +23,11 @@ without gradients and trains the PatchGAN on the detached renders.
 * A D step before ``disc_start`` applies AdamW to zero gradients, which
   still decays the weights, as the JAX package's gated loss does.
 
+``LatentRenderer`` is the decode path (decoder + heads -> deform ->
+render) that the trainer renders its attribute maps through; called on a
+latent it is the JAX trainer's ``render_latent`` (no gradients), which the
+DiT trainer's sampling eval runs.
+
 Not ported yet: ``eval_step``, ``resume`` and checkpoint writing.
 """
 
@@ -80,12 +85,19 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     return norm
 
 
-class VAETrainer:
-    def __init__(self, cfg: Config, body_model: Optional[SMPLXModel] = None,
+class LatentRenderer:
+    """The VAE's decode path to rendered views: decoder + Gaussian heads ->
+    UV grid-sample -> LBS deformer -> rotation composition -> tile
+    rasterizer, on one body model and template. ``VAETrainer`` renders its
+    attribute maps through it; the DiT trainer's sampling eval calls it on
+    sampled latents with a frozen VAE."""
+
+    def __init__(self, cfg: Config, vae: VAEModel,
+                 body_model: Optional[SMPLXModel] = None,
                  template: Optional[TemplateAssets] = None, *,
                  device="cuda"):
         dev = resolve_device(device)
-        self.cfg, self.device = cfg, dev
+        self.device, self.vae = dev, vae
         if body_model is None:
             body_model = (load_smplx_npz(cfg.smplx_model_path)
                           if cfg.smplx_model_path else synthetic_body_model())
@@ -102,68 +114,9 @@ class VAETrainer:
         with torch.no_grad():
             self.deformer_state = self.deformer.initialize()
         self.renderer = GaussianRenderer(cfg)
-
-        # 4 layers at 512^2 like the reference; fewer for small renders
-        n_layers = max(1, min(4, int(math.log2(cfg.output_size)) - 3))
-        with torch.device(dev):   # default inits run on the device
-            self.vae = VAEModel(cfg).to(dev)
-            self.disc = PatchDiscriminator(n_layers=n_layers).to(dev)
-            self.lpips = LPIPS().to(dev).requires_grad_(False)
-        self.logvar = nn.Parameter(torch.zeros((), device=dev))
-        self.loss = VAELoss(cfg, lpips=self.lpips, discriminator=self.disc)
         self.autocast = cfg.mixed_precision == "bf16"
 
-        self.params_g = [*self.vae.parameters(), self.logvar]
-        self.opt_g = torch.optim.AdamW(self.params_g, lr=cfg.lr,
-                                       betas=(0.9, 0.95), eps=1e-8,
-                                       weight_decay=0.01)
-        self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=cfg.lr,
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=1e-4)
-        self.step = 0
-        self._micro = {"g": 0, "d": 0}
-        self.init(cfg.seed)
-
-    # ------------------------------------------------------------------ init
-
-    def init(self, seed: int):
-        """Seeded weights: linear/conv N(0, 1/fan_in), the Gaussian heads at
-        std 1e-3 (decoded offsets start near the template surface), the UV
-        query grid N(0, 1), norms 1/0, LPIPS heads 1/C, logvar 0; the
-        trainer's generator restarts from ``seed``."""
-        dev = self.device
-
-        def gen(offset):
-            return torch.Generator(device=dev).manual_seed(seed + offset)
-
-        random_weights_(self.vae, gen(0))
-        random_weights_(self.vae.heads, gen(1), std=HEAD_INIT_STD)
-        random_weights_(self.disc, gen(2))
-        random_weights_(self.lpips.vgg, gen(3))
-        self.lpips.init_heads()
-        with torch.no_grad():
-            self.vae.autoencoder.uv_latent.normal_(0.0, 1.0,
-                                                   generator=gen(4))
-            self.logvar.zero_()
-        self.generator = gen(5)
-
-    def load_state_dicts(self, vae=None, disc=None, lpips=None, logvar=None):
-        """Load converted weights (``convert.py``)."""
-        for module, sd in ((self.vae, vae), (self.disc, disc),
-                           (self.lpips, lpips)):
-            if sd is not None:
-                module.load_state_dict(sd)
-        if logvar is not None:
-            with torch.no_grad():
-                self.logvar.fill_(float(logvar))
-
-    # --------------------------------------------------------------- forward
-
-    def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
-                for k in BATCH_KEYS}
-
-    def _render_attrs(self, attr_map, batch, timer=NULL_TIMER):
+    def render_attrs(self, attr_map, batch, timer=NULL_TIMER):
         """UV attribute map -> grid-sample -> deform -> rasterize."""
         t = self.template
         with timer("deform"):
@@ -184,6 +137,101 @@ class VAETrainer:
                 "masks_gt": batch["masks_output"],
                 "overflow": render["overflow"]}
 
+    @torch.no_grad()
+    def __call__(self, z: torch.Tensor, batch,
+                 timer=NULL_TIMER) -> Dict[str, torch.Tensor]:
+        """Decode-only path: latent z [B,h,w,Cl] (already divided by
+        ``vae_scaling_factor``) -> decoder + heads -> deform -> render, for
+        a device batch. The spans "decoder", "deform", "knn", "binning" and
+        "forward_tiles" go to ``timer``."""
+        with timer("decoder"), torch.autocast(
+                self.device.type, dtype=torch.bfloat16,
+                enabled=self.autocast):
+            attr_map = self.vae.decode(z)
+        return self.render_attrs(attr_map.float(), batch, timer)
+
+
+def init_vae_(vae: VAEModel, seed: int) -> VAEModel:
+    """Seeded VAE weights: linear/conv N(0, 1/fan_in), the Gaussian heads at
+    std 1e-3 (decoded offsets start near the template surface), the UV
+    query grid N(0, 1), norms 1/0."""
+    dev = next(vae.parameters()).device
+
+    def gen(offset):
+        return torch.Generator(device=dev).manual_seed(seed + offset)
+
+    random_weights_(vae, gen(0))
+    random_weights_(vae.heads, gen(1), std=HEAD_INIT_STD)
+    with torch.no_grad():
+        vae.autoencoder.uv_latent.normal_(0.0, 1.0, generator=gen(4))
+    return vae
+
+
+class VAETrainer:
+    def __init__(self, cfg: Config, body_model: Optional[SMPLXModel] = None,
+                 template: Optional[TemplateAssets] = None, *,
+                 device="cuda"):
+        dev = resolve_device(device)
+        self.cfg, self.device = cfg, dev
+
+        # 4 layers at 512^2 like the reference; fewer for small renders
+        n_layers = max(1, min(4, int(math.log2(cfg.output_size)) - 3))
+        with torch.device(dev):   # default inits run on the device
+            self.vae = VAEModel(cfg).to(dev)
+            self.disc = PatchDiscriminator(n_layers=n_layers).to(dev)
+            self.lpips = LPIPS().to(dev).requires_grad_(False)
+        self.latent_renderer = LatentRenderer(cfg, self.vae, body_model,
+                                              template, device=dev)
+        self.logvar = nn.Parameter(torch.zeros((), device=dev))
+        self.loss = VAELoss(cfg, lpips=self.lpips, discriminator=self.disc)
+        self.autocast = cfg.mixed_precision == "bf16"
+
+        self.params_g = [*self.vae.parameters(), self.logvar]
+        self.opt_g = torch.optim.AdamW(self.params_g, lr=cfg.lr,
+                                       betas=(0.9, 0.95), eps=1e-8,
+                                       weight_decay=0.01)
+        self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=cfg.lr,
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=1e-4)
+        self.step = 0
+        self._micro = {"g": 0, "d": 0}
+        self.init(cfg.seed)
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, seed: int):
+        """Seeded weights: the VAE's by ``init_vae_``, the discriminator's
+        and the LPIPS trunk's linear/conv N(0, 1/fan_in), LPIPS heads 1/C,
+        logvar 0; the trainer's generator restarts from ``seed``."""
+        dev = self.device
+
+        def gen(offset):
+            return torch.Generator(device=dev).manual_seed(seed + offset)
+
+        init_vae_(self.vae, seed)
+        random_weights_(self.disc, gen(2))
+        random_weights_(self.lpips.vgg, gen(3))
+        self.lpips.init_heads()
+        with torch.no_grad():
+            self.logvar.zero_()
+        self.generator = gen(5)
+
+    def load_state_dicts(self, vae=None, disc=None, lpips=None, logvar=None):
+        """Load converted weights (``convert.py``)."""
+        for module, sd in ((self.vae, vae), (self.disc, disc),
+                           (self.lpips, lpips)):
+            if sd is not None:
+                module.load_state_dict(sd)
+        if logvar is not None:
+            with torch.no_grad():
+                self.logvar.fill_(float(logvar))
+
+    # --------------------------------------------------------------- forward
+
+    def to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
+                for k in BATCH_KEYS}
+
     def forward(self, batch, noise: Optional[torch.Tensor] = None,
                 train: bool = False, timer=NULL_TIMER):
         """Full differentiable forward: images -> rendered views.
@@ -200,7 +248,8 @@ class VAETrainer:
                 generator=self.generator, timer=timer)
         posterior = DiagonalGaussian(posterior.mean.float(),
                                      posterior.logvar.float())
-        return self._render_attrs(attr_map.float(), batch, timer), posterior
+        return (self.latent_renderer.render_attrs(attr_map.float(), batch,
+                                                  timer), posterior)
 
     # ------------------------------------------------------------ train steps
 

@@ -15,7 +15,8 @@ import torch
 
 from chip_smoke import (K1_TOL, K2_TOL, SMALL_GRAD_TOL, SMALL_LOSS_TOL,
                         _pair_rows, cull_cases, grad_tiles, hand_streams,
-                        k1_diff, k2_diff, small_train_step_diff)
+                        k1_diff, k2_diff, small_dit_step_diff,
+                        small_train_step_diff)
 from sigman_release_torch.ops.rasterizer import backward_tiles as k2
 from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 from sigman_release_torch.ops.rasterizer import (
@@ -216,4 +217,13 @@ def test_vae_train_step_cuda_matches_cpu(cuda_device):
     before = k2.backward_tiles.launches
     loss_rel, grad_rel = small_train_step_diff(cuda_device)
     assert k2.backward_tiles.launches == before + 1
+    assert loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL
+
+
+def test_dit_train_step_cuda_matches_cpu(cuda_device):
+    """One test_tiny DiT step (raw path, two items, one with its condition
+    dropped) on the card against the CPU (the same weights, batch and
+    draws, TF32 off; chip_smoke phase 11): loss 1e-4 relative, gradient
+    1e-3 relative L2."""
+    loss_rel, grad_rel = small_dit_step_diff(cuda_device)
     assert loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL

@@ -180,6 +180,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         VAETrainer(PRESETS["test_tiny"])
     with pytest.raises(RuntimeError, match="CUDA"):
         train_vae.main(["test_tiny"])
+    from sigman_release_torch import train_dit
+    from sigman_release_torch.training.dit_trainer import DiTTrainer
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_dit.main(["test_tiny"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DiTTrainer(PRESETS["test_tiny"], torch.nn.Identity(),
+                   torch.nn.Identity())
     from sigman_release_torch.device import resolve_device
     assert resolve_device("cpu").type == "cpu"
 
