@@ -49,9 +49,24 @@ Phases (any failure exits non-zero before the final line):
              launch count zeroed before; K1 against its plain version on
              that eval's own pair stream;
 11. small dit — one ``test_tiny`` DiT step on the GPU against the CPU (same
-             weights, batch and draws, TF32 off): loss and gradients.
+             weights, batch and draws, TF32 off): loss and gradients;
+12. ckpt      — last, so that phases 1-11 run as they did without it: a
+             fresh ``vae_b`` trainer of phase 7's set-up takes one G and
+             one D step; ``save`` of its state (under ``build/``);
+             a fresh trainer's ``resume`` equal bit for bit to the state
+             saved, and one more G step on both with the same posterior
+             noise (loss and updated weights against the original's, K1
+             and K2 launch counts zeroed before the resumed step);
+             reference-layout safetensors of the VAE and discriminator
+             written with numpy and read back by ``load_params_any``;
+             ``evaluate`` over 2 held-out items at batch 1 (posterior mean,
+             PSNR, masked PSNR, SSIM, LPIPS at 512^2, the GT | pred PNG),
+             K1 launches zeroed before, K1 against its plain version on
+             the eval's own pair stream; and the ``test_tiny`` DiT
+             accumulation round trip (save at micro-step 1 of 2, resume,
+             compare with an uninterrupted run).
 
-Phases 2 and 6 also run ``cull_cases``; phases 4, 8 and 10 print each
+Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
 the hits plus a staging pass per row; without the cull: every needed
 evaluation). Each phase's wall seconds are printed at the end.
@@ -120,6 +135,15 @@ SMALL_TOL = 1e-3                # test_tiny path, GPU vs CPU
 # test_tiny G step, GPU vs CPU: loss relative, gradient L2 relative
 SMALL_LOSS_TOL = 1e-4
 SMALL_GRAD_TOL = 1e-3
+# the G step of a resumed vae_b trainer against the original's on the same
+# noise: loss relative, updated weights relative L2 (the backward's atomics
+# may round the gradients differently)
+RESUME_LOSS_TOL = 1e-6
+RESUME_PARAM_TOL = 1e-5
+# test_tiny DiT: an accumulation saved and resumed against an uninterrupted
+# one, max |difference| of the weights (TF32 off, cuDNN deterministic)
+SMALL_RESUME_TOL = 1e-6
+EVAL_ITEMS = 2
 DEVICE = "cuda"
 PRESET = "dit"
 TRAIN_PRESET = "vae_b"
@@ -585,6 +609,7 @@ def main():
     torch.cuda.empty_cache()
     train = train_phases(dev, body, template, clock)
     dit = dit_phases(dev, body, template, clock)
+    ckpt = ckpt_phase(dev, body, template, clock)
     clock.report()
 
     kernels = [{
@@ -592,10 +617,13 @@ def main():
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/forward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
-        "launches": launches + train["k1_launches"] + dit["k1_launches"],
+        "launches": (launches + train["k1_launches"] + dit["k1_launches"]
+                     + ckpt["k1_resume"] + ckpt["k1_eval"]),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
-                             "dit_train": dit["k1_launches"]},
+                             "dit_train": dit["k1_launches"],
+                             "vae_resume": ckpt["k1_resume"],
+                             "vae_eval": ckpt["k1_eval"]},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -612,14 +640,20 @@ def main():
                       "bound_ms": dit["k1_bound"],
                       "bound_ms_without_cull": dit["k1_bound_old"],
                       "max_abs_err": dit["k1_err"]},
+        "vae_eval": {"ms": ckpt["k1_ms"], "plain_ms": ckpt["k1_plain_ms"],
+                     "bound_ms": ckpt["k1_bound"],
+                     "bound_ms_without_cull": ckpt["k1_bound_old"],
+                     "max_abs_err": ckpt["k1_err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
-        "launches": train["k2_launches"],
+        "launches": train["k2_launches"] + ckpt["k2_resume"],
         "launches_by_path": {"serve": 0, "train": train["k2_launches"],
-                             "dit_train": 0},
+                             "dit_train": 0,
+                             "vae_resume": ckpt["k2_resume"],
+                             "vae_eval": 0},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -891,6 +925,307 @@ def train_phases(dev, body, template, clock):
             "k2_bound_old": k2_old[0], "k1_ms": k1_ms,
             "k1_plain_ms": k1_plain_ms, "k1_err": k1_err,
             "k1_bound": k1_new[0], "k1_bound_old": k1_old[0]}
+
+
+def trainer_state(t):
+    """Every tensor and count a resumed ``VAETrainer`` must restore, on the
+    host: weights (VAE, logvar, discriminator), both AdamW states, partial
+    gradient sums, the step and micro-step counts, the generator."""
+    def host(x):
+        return x.detach().to("cpu", copy=True)
+
+    tensors = [host(p) for p in [*t.params_g, *t.disc.parameters()]]
+    for opt in (t.opt_g, t.opt_d):
+        for group in opt.param_groups:
+            for p in group["params"]:
+                tensors += [host(v) for _, v in
+                            sorted(opt.state.get(p, {}).items())]
+    tensors += [host(p.grad) for p in [*t.params_g, *t.disc.parameters()]
+                if p.grad is not None]
+    return tensors, (t.step, dict(t._micro)), t.generator.get_state()
+
+
+def write_safetensors(path, tensors):
+    """{name: numpy array} as a safetensors file: an 8-byte little-endian
+    header length, the JSON header (padded to 8 bytes), the raw bytes."""
+    kinds = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": kinds[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a).tobytes())
+
+
+def small_dit_resume_diff(dev, path):
+    """``test_tiny`` DiT at gradient_accumulation_steps 2 on ``dev``: four
+    micro-steps in one trainer against one, a save to ``path``, a resume
+    into a fresh trainer and micro-steps 2-4 (pre-encoded batches, draws
+    from the trainers' generators, TF32 off, cuDNN deterministic). Returns
+    the max |weight difference| and the counts of both."""
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.models.vae import VAEModel
+    from sigman_release_torch.training.dit_trainer import (
+        DiTTrainer, make_encoder)
+
+    cfg = PRESETS["test_tiny"].replace(gradient_accumulation_steps=2,
+                                       noised_condition_dropout=0.5)
+    rng = np.random.default_rng(6)
+    h = cfg.sample_height
+    batches = [{"latent": torch.from_numpy(rng.normal(size=(
+                    2, cfg.latent_channels, h, h)).astype(np.float32)).to(dev),
+                "cond": torch.from_numpy(rng.normal(size=(
+                    2, cfg.text_embed_dim, h, h)).astype(np.float32)).to(dev)}
+               for _ in range(4)]
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        def trainer():
+            return DiTTrainer(cfg, VAEModel(cfg), make_encoder(cfg),
+                              device=dev)
+
+        whole = trainer()
+        for b in batches:
+            whole.train_step(b)
+        first = trainer()
+        first.train_step(batches[0])
+        first.save(path)
+        resumed = trainer()
+        resumed.resume(path)
+        for b in batches[1:]:
+            resumed.train_step(b)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = prev
+        if os.path.exists(path):
+            os.remove(path)
+    diff = max((p - q).abs().max().item() for p, q in
+               zip(resumed.model.parameters(), whole.model.parameters()))
+    counts = [(t.step, t.updates, t._micro) for t in (resumed, whole)]
+    return diff, counts
+
+
+def ckpt_phase(dev, body, template, clock):
+    """Phase 12; returns the numbers the kernels line needs."""
+    import torch
+
+    from sigman_release_torch import convert
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.data.loader import DataLoader
+    from sigman_release_torch.losses.gan import PatchDiscriminator
+    from sigman_release_torch.models.vae import VAEModel
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.training import checkpoint
+    from sigman_release_torch.training.vae_trainer import (
+        VAETrainer, synthetic_setup)
+
+    clock.start("ckpt")
+    cfg = PRESETS[TRAIN_PRESET]
+    trainer, batch = synthetic_setup(cfg, device=dev, body_model=body,
+                                     template=template)
+    trainer.train_step_g(batch)
+    trainer.train_step_d(batch)
+    build = os.path.join(ROOT, "build", "smoke_ckpt")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "vae_state.pt")
+    try:
+        # ---- save, resume into a fresh trainer, one more G step on both
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.save(path)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        saved = trainer_state(trainer)
+        q, c = cfg.uv_query_size, cfg.latent_channels
+        noise = torch.from_numpy(np.random.default_rng(12).normal(
+            size=(1, q, q, c)).astype(np.float32)).to(dev)
+        loss_a = trainer.train_step_g(batch, noise)["loss"].item()
+        after_a = [p.detach().clone() for p in trainer.params_g]
+        fresh = VAETrainer(cfg, body_model=body, template=template,
+                           device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh.resume(path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        got = trainer_state(fresh)
+        n_equal = sum(torch.equal(x, y) for x, y in zip(saved[0], got[0]))
+        print(f"[ckpt] save {save_s:.2f} s, {size} bytes; resume into a "
+              f"fresh trainer {resume_s:.2f} s; {n_equal} of "
+              f"{len(saved[0])} tensors equal bit for bit; step / micro "
+              f"{got[1]} (saved {saved[1]}); generator state equal "
+              f"{torch.equal(saved[2], got[2])}", flush=True)
+        if (len(got[0]) != len(saved[0]) or n_equal != len(saved[0])
+                or got[1] != saved[1] or not torch.equal(saved[2], got[2])):
+            fail("the resumed vae_b state differs from the saved one")
+        del saved, got
+        k1.forward_tiles.launches = 0
+        k2.backward_tiles.launches = 0
+        loss_b = fresh.train_step_g(batch, noise)["loss"].item()
+        k1_resume, k2_resume = (k1.forward_tiles.launches,
+                                k2.backward_tiles.launches)
+        num = sum(((p.detach() - a) ** 2).sum().item()
+                  for p, a in zip(fresh.params_g, after_a))
+        den = sum((a ** 2).sum().item() for a in after_a)
+        loss_rel = abs(loss_b - loss_a) / abs(loss_a)
+        param_rel = (num / den) ** 0.5
+        print(f"[ckpt] the next G step, original / resumed: loss "
+              f"{loss_a:.8f} / {loss_b:.8f} (relative {loss_rel:.3e}); "
+              f"updated weights relative L2 {param_rel:.3e}; K1 launches "
+              f"{k1_resume}, K2 launches {k2_resume}", flush=True)
+        if not loss_rel <= RESUME_LOSS_TOL or not param_rel <= RESUME_PARAM_TOL:
+            fail(f"the resumed G step differs: loss {loss_rel}, weights "
+                 f"{param_rel}")
+        if k1_resume != 1 or k2_resume != 1:
+            fail(f"the resumed G step launched K1 {k1_resume}, K2 "
+                 f"{k2_resume} times, not once each")
+        del after_a, trainer, batch
+        torch.cuda.empty_cache()
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+
+    # ---- reference-layout safetensors, written here, read back
+    for name, module, fresh_module in (
+            ("vae", fresh.vae, lambda: VAEModel(cfg)),
+            ("disc", fresh.disc,
+             lambda: PatchDiscriminator(n_layers=len(fresh.disc.norms)))):
+        src = module.state_dict()
+        names = convert.reference_key_map(module)
+        tensors = {names[n]: t.detach().cpu().numpy() for n, t in src.items()}
+        if name == "disc":      # BatchNorm statistics, as the reference's
+            for k in range(len(module.norms)):
+                ch = module.norms[k].num_channels
+                base = f"main.{3 + 3 * k}"
+                tensors[f"{base}.running_mean"] = np.zeros(ch, np.float32)
+                tensors[f"{base}.running_var"] = np.ones(ch, np.float32)
+                tensors[f"{base}.num_batches_tracked"] = np.array(
+                    1000, np.int64)
+        st_path = os.path.join(build, f"{name}.safetensors")
+        try:
+            write_safetensors(st_path, tensors)
+            with torch.device(dev):
+                target = fresh_module()
+            t0 = time.perf_counter()
+            sd, stats = checkpoint.load_params_any(st_path, target, cfg,
+                                                   verbose=False)
+            target.load_state_dict(sd)
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            st_bytes = os.path.getsize(st_path)
+        finally:
+            if os.path.exists(st_path):
+                os.remove(st_path)
+        back = target.state_dict()
+        n_equal = sum(torch.equal(back[n], t) for n, t in src.items())
+        print(f"[ckpt] reference-layout {name} file {st_bytes} bytes, read "
+              f"into a fresh module in {read_s:.2f} s: {stats['restored']} "
+              f"restored, missing {len(stats['missing'])}, mismatched "
+              f"{len(stats['mismatched'])}, unused {len(stats['unused'])}; "
+              f"{n_equal} of {len(src)} tensors equal", flush=True)
+        if (n_equal != len(src) or stats["missing"] or stats["mismatched"]
+                or stats["unused"]):
+            fail(f"the reference-layout {name} file did not read back equal")
+        del target, back, sd, tensors
+    torch.cuda.empty_cache()
+
+    # ---- evaluate over held-out items through K1
+    eval_loader = DataLoader(SyntheticAvatarDataset(cfg, n_items=EVAL_ITEMS,
+                                                    seed=999),
+                             1, shuffle=False, num_workers=1,
+                             drop_last=False)
+    captured = {}
+    real_forward = render_lib.forward_tiles
+
+    def capturing_forward(*a, **kw):       # keeps the last eval render's
+        captured.update(args=a, kw=kw)
+        return real_forward(*a, **kw)
+
+    vis = os.path.join(ROOT, "chiprun_out", "vae_eval.png")
+    if os.path.exists(vis):
+        os.remove(vis)
+    step_ms = []
+
+    def timed_eval_step(b):                # the device part of each batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = type(fresh).eval_step(fresh, b)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    fresh.eval_step = timed_eval_step
+    render_lib.forward_tiles = capturing_forward
+    k1.forward_tiles.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = fresh.evaluate(eval_loader, vis_path=vis)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        render_lib.forward_tiles = real_forward
+        del fresh.eval_step
+    k1_eval = k1.forward_tiles.launches
+    print(f"[eval] evaluate over {EVAL_ITEMS} held-out items at batch 1 "
+          f"({cfg.num_views} views at {cfg.output_size}^2, LPIPS "
+          f"{cfg.eval_lpips_net}) {eval_ms:.1f} ms, of which eval_step "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)} ms (the rest waits on the "
+          f"held-out items the loader builds on the host, and writes the "
+          f"PNG): {ev}; "
+          f"forward_tiles launches {k1_eval}; PNG written "
+          f"{os.path.exists(vis)}", flush=True)
+    if not all(np.isfinite(v) for v in ev.values()) or len(ev) != 4:
+        fail(f"non-finite or missing eval metrics: {ev}")
+    if k1_eval != len(eval_loader):
+        fail(f"evaluate launched K1 {k1_eval} times for "
+             f"{len(eval_loader)} eval batches")
+    if not os.path.exists(vis):
+        fail("evaluate wrote no PNG")
+    a, kw = captured["args"], captured["kw"]
+    with torch.no_grad():
+        held = hold_k1(*a[:3], kw)
+    print(f"[k1 eval] forward_tiles on the eval's stream ({held['n_pairs']} "
+          f"pairs in {a[1].numel()} tiles) {held['ms']:.4f} ms, plain "
+          f"{held['plain_ms']:.1f} ms, max |kernel - plain| "
+          f"{held['err']:.3e}; {bound_text(held['ms'], held['new'], held['old'])}",
+          flush=True)
+    print(f"[k1 eval] stream: {stream_text(a[2], held['work'])}")
+    if not held["err"] <= K1_TOL:
+        fail(f"forward_tiles disagrees with its plain version on the eval's "
+             f"stream: {held['err']}")
+    del fresh, captured, a, held["plain"]
+    torch.cuda.empty_cache()
+
+    # ---- test_tiny DiT: an accumulation saved and resumed
+    diff, counts = small_dit_resume_diff(
+        dev, os.path.join(build, "dit_tiny.pt"))
+    print(f"[ckpt] test_tiny DiT accumulation saved at micro-step 1 of 2 and "
+          f"resumed: max |weight difference| {diff:.3e} against an "
+          f"uninterrupted run; (step, updates, micro) {counts}", flush=True)
+    if not diff <= SMALL_RESUME_TOL or counts[0] != counts[1]:
+        fail(f"the resumed test_tiny DiT accumulation differs: {diff}, "
+             f"{counts}")
+    return {"k1_resume": k1_resume, "k2_resume": k2_resume,
+            "k1_eval": k1_eval, "k1_err": held["err"], "k1_ms": held["ms"],
+            "k1_plain_ms": held["plain_ms"], "k1_bound": held["new"][0],
+            "k1_bound_old": held["old"][0]}
 
 
 def small_dit_step_diff(dev):

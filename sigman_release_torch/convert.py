@@ -1,5 +1,6 @@
-"""Flax parameter trees -> this package's ``state_dict``s, and Sapiens
-weights -> the conditioning encoder.
+"""Flax parameter trees -> this package's ``state_dict``s, reference
+safetensors names -> this package's names, and Sapiens weights -> the
+conditioning encoder.
 
 Takes the JAX package's parameter trees as nested dicts of numpy arrays (for
 example ``np.asarray`` mapped over each leaf) and returns ``state_dict``s for
@@ -13,8 +14,16 @@ the PatchGAN discriminator:
   -> Linear weights ``[heads*hd, d]`` / ``[d, heads*hd]``,
 * LayerNorm / GroupNorm / RMSNorm ``scale`` -> ``weight``.
 
-Every parameter of the target module must be found with its shape;
-anything missing or mismatched raises.
+``convert`` needs every parameter of the target module with its shape and
+raises otherwise; ``map_tree`` maps what a tree holds and leaves the
+checking to ``training.checkpoint.tolerant_restore``. Tree leaves may be
+numpy arrays or CPU tensors (bf16 ones are widened to f32, exactly).
+
+``reference_key_map`` names each parameter of a VAE, discriminator or DiT
+as the reference's safetensors files do: the DiT's names are the port's,
+the VAE's differ in ``to_out.0`` and the heads' prefix, and the
+discriminator's ``main.{i}`` Sequential indices map onto ``convs`` /
+``norms``; BatchNorm running statistics have no counterpart.
 
 ``convert_sapiens`` (the counterpart of ``scripts/convert_sapiens.py``) maps
 an mmpretrain-style ViT ``state_dict`` (``patch_embed.projection``,
@@ -166,16 +175,23 @@ def vae_key_map(cfg) -> KeyMap:
     return m
 
 
-def lpips_key_map() -> KeyMap:
-    """Port ``LPIPS`` keys -> Flax ``LPIPS`` (VGG) paths."""
-    from sigman_release_torch.losses.lpips import VGG_CONVS
+def lpips_key_map(net: str = "vgg") -> KeyMap:
+    """Port ``LPIPS`` keys -> Flax ``LPIPS`` paths (VGG16 or AlexNet)."""
+    from sigman_release_torch.losses.lpips import ALEX_CONVS, VGG_CONVS
 
     m: KeyMap = {}
     p = ("params",)
-    for bi, n in enumerate(VGG_CONVS):
-        for ci in range(n):
-            _conv_entry(m, f"vgg.conv{bi}_{ci}", p + ("vgg", f"conv{bi}_{ci}"))
-    for i in range(len(VGG_CONVS)):
+    if net == "alex":
+        for i in range(len(ALEX_CONVS)):
+            _conv_entry(m, f"alex.conv{i}", p + ("alex", f"conv{i}"))
+        n_lins = len(ALEX_CONVS)
+    else:
+        for bi, n in enumerate(VGG_CONVS):
+            for ci in range(n):
+                _conv_entry(m, f"vgg.conv{bi}_{ci}",
+                            p + ("vgg", f"conv{bi}_{ci}"))
+        n_lins = len(VGG_CONVS)
+    for i in range(n_lins):
         _conv_entry(m, f"lins.{i}", p + (f"lin{i}",), bias=False)
     return m
 
@@ -251,7 +267,41 @@ def _lookup(tree, path):
         if not isinstance(node, dict) or k not in node:
             raise KeyError("/".join(path))
         node = node[k]
+    if isinstance(node, torch.Tensor):      # a state file's leaf
+        return (node.float() if node.dtype == torch.bfloat16 else node).numpy()
     return node
+
+
+def map_tree(tree, key_map: KeyMap) -> Dict[str, torch.Tensor]:
+    """The port-named tensors of every ``key_map`` entry whose path ``tree``
+    holds, transformed; entries it lacks are left out."""
+    out = {}
+    for name, (path, tfm) in key_map.items():
+        try:
+            w = tfm(_lookup(tree, path))
+        except KeyError:
+            continue
+        out[name] = torch.from_numpy(np.ascontiguousarray(w))
+    return out
+
+
+def key_map_for(module: nn.Module, cfg) -> KeyMap:
+    """The Flax-path map of a VAE (whole or decode side), DiT, ViT encoder
+    or PatchGAN discriminator."""
+    from sigman_release_torch.losses.gan import PatchDiscriminator
+    from sigman_release_torch.models.dit import DiTModel
+    from sigman_release_torch.models.encoders import ViTFeatureEncoder
+    from sigman_release_torch.models.vae import VAEModel
+
+    if isinstance(module, VAEModel):
+        return vae_key_map(cfg)
+    if isinstance(module, DiTModel):
+        return dit_key_map(len(module.transformer_blocks))
+    if isinstance(module, ViTFeatureEncoder):
+        return vit_key_map(len(module.blocks))
+    if isinstance(module, PatchDiscriminator):
+        return disc_key_map(len(module.norms))
+    raise TypeError(f"no parameter map for {type(module).__name__}")
 
 
 def convert(tree, module: nn.Module, key_map: KeyMap) -> Dict[str, torch.Tensor]:
@@ -296,11 +346,87 @@ def convert_vae(tree, module, cfg):
 
 
 def convert_lpips(tree, module):
-    return convert(tree, module, lpips_key_map())
+    return convert(tree, module, lpips_key_map(module.net))
 
 
 def convert_disc(tree, module):
     return convert(tree, module, disc_key_map(len(module.norms)))
+
+
+# reference-file entries that are no parameter of the port: the VAE's sincos
+# table (recomputed) and template UV coordinates (read from the assets)
+VAE_REFERENCE_UNMAPPED = ("autoencoder.pos_embedding", "smplx_uvcoord")
+REFERENCE_STATS = ("running_mean", "running_var", "num_batches_tracked")
+
+
+def reference_family(keys) -> str:
+    """``"vae"``, ``"disc"`` or ``"dit"`` from a reference file's names."""
+    keys = list(keys)
+    if any(k.startswith("autoencoder.") for k in keys):
+        return "vae"
+    if any(k.startswith("main.") for k in keys):
+        return "disc"
+    return "dit"
+
+
+def disc_reference_index(n_layers: int) -> Dict[str, int]:
+    """Port discriminator module -> index in the reference's ``main``
+    Sequential: conv, LeakyReLU, then (conv, BatchNorm, LeakyReLU) per
+    normed layer, then the last conv."""
+    idx = {"convs.0": 0, f"convs.{n_layers + 1}": 2 + 3 * n_layers}
+    for k in range(n_layers):
+        idx[f"convs.{k + 1}"] = 2 + 3 * k
+        idx[f"norms.{k}"] = 3 + 3 * k
+    return idx
+
+
+def reference_key_map(module: nn.Module) -> Dict[str, str]:
+    """Each state_dict name of ``module`` (a VAE, PatchGAN discriminator or
+    DiT) -> its name in the reference's safetensors file."""
+    from sigman_release_torch.losses.gan import PatchDiscriminator
+    from sigman_release_torch.models.dit import DiTModel
+    from sigman_release_torch.models.vae import VAEModel
+
+    names = list(module.state_dict())
+    if isinstance(module, VAEModel):
+        def ref(n):
+            if n.startswith("heads."):
+                n = n[len("heads."):]
+            return re.sub(r"\.to_out\.(weight|bias)$", r".to_out.0.\1", n)
+        return {n: ref(n) for n in names}
+    if isinstance(module, PatchDiscriminator):
+        idx = disc_reference_index(len(module.norms))
+        return {n: f"main.{idx[n.rsplit('.', 1)[0]]}.{n.rsplit('.', 1)[1]}"
+                for n in names}
+    if isinstance(module, DiTModel):
+        return {n: n for n in names}
+    raise TypeError(f"no reference names for {type(module).__name__}")
+
+
+def from_reference(sd: Dict[str, torch.Tensor], module: nn.Module):
+    """A reference safetensors file's tensors -> ``module``'s names.
+    Returns (state_dict, unmapped): ``unmapped`` lists the file's names that
+    are neither a parameter of the module nor expected without one (the
+    VAE's sincos table and UV coordinates, BatchNorm statistics). Raises if
+    the file holds another model than ``module``."""
+    from sigman_release_torch.losses.gan import PatchDiscriminator
+    from sigman_release_torch.models.dit import DiTModel
+    from sigman_release_torch.models.vae import VAEModel
+
+    family = reference_family(sd)
+    kinds = {"vae": VAEModel, "disc": PatchDiscriminator, "dit": DiTModel}
+    if not isinstance(module, kinds[family]):
+        raise ValueError(f"a reference {family} file does not load into "
+                         f"{type(module).__name__}")
+    to_port = {r: n for n, r in reference_key_map(module).items()}
+    out, unmapped = {}, []
+    for k, v in sd.items():
+        if k in to_port:
+            out[to_port[k]] = v
+        elif not (k in VAE_REFERENCE_UNMAPPED
+                  or k.rsplit(".", 1)[-1] in REFERENCE_STATS):
+            unmapped.append(k)
+    return out, sorted(unmapped)
 
 
 # mmpretrain ViT key patterns (any prefix): (regex, kind); group 1 is the

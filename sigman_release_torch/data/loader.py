@@ -1,7 +1,8 @@
 """Batching with thread-pool prefetch, and the per-process item split
 (port of the JAX package's ``data/loader.py``). Batches are dicts of numpy
-arrays; each epoch's shuffle draws from a ``torch.Generator`` seeded with
-``seed + epoch``; the last partial batch is dropped; two batches are
+arrays; with ``shuffle`` each epoch's order draws from a ``torch.Generator``
+seeded with ``seed + epoch``, else it is the dataset's; with ``drop_last``
+the last partial batch is dropped, else it is yielded; two batches are
 fetched ahead."""
 
 from __future__ import annotations
@@ -33,20 +34,27 @@ def _collate(samples) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Thread-pool prefetching loader over a map-style dataset."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 seed: int = 0):
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 num_workers: int = 4, seed: int = 0, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(1, num_workers)
         self.seed = seed
+        self.drop_last = drop_last
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        g = torch.Generator().manual_seed(self.seed + self.epoch)
-        order = torch.randperm(len(self.dataset), generator=g).numpy()
+        if self.shuffle:
+            g = torch.Generator().manual_seed(self.seed + self.epoch)
+            order = torch.randperm(len(self.dataset), generator=g).numpy()
+        else:
+            order = np.arange(len(self.dataset))
         self.epoch += 1
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]

@@ -5,10 +5,13 @@ Port of ``scripts/test_DiT.py`` ``main()`` (single-image path). Run as::
 
     python -m sigman_release_torch.inference --preset dit --out_dir out/
 
-The models carry seeded random weights (``--seed``) until converted
-checkpoints are loaded through ``AvatarPipeline.load_state_dicts`` (see
-``convert.py``). Without ``--image_path`` the conditioning image is a seeded
-random array; without ``--pose_path`` the body takes the canonical pose.
+The models carry seeded random weights (``--seed``); ``--vae_ckpt`` and
+``--dit_ckpt`` load trained ones from any of the three state-file formats
+(``training/checkpoint.py``: the port's own trainer state, the JAX
+package's msgpack state file, the reference's safetensors), and
+``AvatarPipeline.load_state_dicts`` takes converted ones (``convert.py``).
+Without ``--image_path`` the conditioning image is a seeded random array;
+without ``--pose_path`` the body takes the canonical pose.
 Views are written as ``view_XX.png`` and ``views.npy``. Runs on CUDA unless
 ``--device cpu``.
 """
@@ -210,6 +213,17 @@ class AvatarPipeline:
             if sd is not None:
                 module.load_state_dict(sd)
 
+    def load_checkpoints(self, vae: Optional[str] = None,
+                         dit: Optional[str] = None):
+        """The decode side of the VAE and the DiT from state files in any
+        of the three formats (``checkpoint.load_params_any``)."""
+        from sigman_release_torch.training.checkpoint import load_params_any
+
+        for module, path in ((self.vae, vae), (self.dit, dit)):
+            if path:
+                module.load_state_dict(
+                    load_params_any(path, module, self.cfg)[0])
+
     @torch.no_grad()
     def __call__(self, image: torch.Tensor, smpl_vec: Optional[torch.Tensor],
                  cam_view: torch.Tensor, cam_view_proj: torch.Tensor, *,
@@ -273,11 +287,18 @@ def main(argv=None):
     ap.add_argument("--out_dir", default="./workspace/inference")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--vae_ckpt", default=None,
+                    help="VAE weights: a VAE trainer state (.pt), a msgpack "
+                         "state file or autoencoder.safetensors")
+    ap.add_argument("--dit_ckpt", default=None,
+                    help="DiT weights: a DiT trainer state (.pt), a msgpack "
+                         "state file or transformer.safetensors")
     args = ap.parse_args(argv)
 
     cfg = PRESETS[args.preset]
     dev = resolve_device(args.device)
     pipe = AvatarPipeline(cfg, device=dev, seed=args.seed)
+    pipe.load_checkpoints(vae=args.vae_ckpt, dit=args.dit_ckpt)
 
     if args.image_path:
         img = load_image(args.image_path)

@@ -1,13 +1,14 @@
-"""LPIPS perceptual loss with a VGG16 backbone (port of the JAX package's
-``losses/lpips.py``, training-loss net).
+"""LPIPS perceptual distance with a VGG16 or AlexNet backbone (port of
+the JAX package's ``losses/lpips.py``).
 
-VGG16 relu slices 1_2/2_2/3_3/4_3/5_3, channel unit-normalisation, 1x1
-linear heads, spatial mean, sum over the five layers. Inputs are in [-1, 1]
-and are normalised with the LPIPS shift/scale constants. No converted
-weights are in the repository, so the backbone is seeded-random (as the JAX
-package without a checkpoint) and the heads start at 1/C, which keeps the
-distance nonnegative and zero only for equal inputs. The AlexNet eval
-backbone and weight loading are not ported yet.
+Backbone relu slices (VGG16 1_2/2_2/3_3/4_3/5_3 for the training loss;
+AlexNet relu1-5, the reference's eval net, with ``net="alex"``), channel
+unit-normalisation, 1x1 linear heads, spatial mean, sum over the five
+layers. Inputs are in [-1, 1] and are normalised with the LPIPS shift/scale
+constants. No converted weights are in the repository, so the backbone is
+seeded-random (as the JAX package without a checkpoint) and the heads start
+at 1/C, which keeps the distance nonnegative and zero only for equal
+inputs.
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ from torch import nn
 
 VGG_CHANNELS = (64, 128, 256, 512, 512)
 VGG_CONVS = (2, 2, 3, 3, 3)        # convs per slice
+ALEX_CHANNELS = (64, 192, 384, 256, 256)
+# (kernel, stride, padding) of AlexNet's five convs, one per slice
+ALEX_CONVS = ((11, 4, 2), (5, 1, 2), (3, 1, 1), (3, 1, 1), (3, 1, 1))
 
 SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 SCALE = np.array([0.458, 0.448, 0.450], np.float32)
@@ -48,14 +52,44 @@ class VGG16Slices(nn.Module):
         return outs
 
 
-class LPIPS(nn.Module):
-    """lpips(x, y): x/y [B,3,H,W] in [-1,1] -> [B] distances."""
+class AlexSlices(nn.Module):
+    """AlexNet feature extractor returning the five relu outputs
+    (torchvision ``alexnet().features`` geometry): conv 11x11/4 pad 2,
+    3x3/2 max-pool, conv 5x5 pad 2, 3x3/2 max-pool, three 3x3 convs; convs
+    named ``conv{i}``."""
 
     def __init__(self):
         super().__init__()
-        self.vgg = VGG16Slices()
+        cin = 3
+        for i, ((k, st, pad), ch) in enumerate(zip(ALEX_CONVS,
+                                                   ALEX_CHANNELS)):
+            self.add_module(f"conv{i}", nn.Conv2d(cin, ch, k, stride=st,
+                                                  padding=pad))
+            cin = ch
+
+    def forward(self, x):  # [B,3,H,W] in lpips-normalised space
+        outs = []
+        for i in range(len(ALEX_CONVS)):
+            if i in (1, 2):
+                x = F.max_pool2d(x, 3, 2)
+            x = F.relu(getattr(self, f"conv{i}")(x))
+            outs.append(x)
+        return outs
+
+
+class LPIPS(nn.Module):
+    """lpips(x, y): x/y [B,3,H,W] in [-1,1] -> [B] distances; the backbone
+    is ``self.vgg`` (``net="vgg"``) or ``self.alex`` (``net="alex"``)."""
+
+    def __init__(self, net: str = "vgg"):
+        super().__init__()
+        if net not in ("vgg", "alex"):
+            raise ValueError(f"LPIPS net {net!r}: 'vgg' or 'alex'")
+        self.net = net
+        self.channels = VGG_CHANNELS if net == "vgg" else ALEX_CHANNELS
+        setattr(self, net, VGG16Slices() if net == "vgg" else AlexSlices())
         self.lins = nn.ModuleList(nn.Conv2d(c, 1, 1, bias=False)
-                                  for c in VGG_CHANNELS)
+                                  for c in self.channels)
         self.register_buffer("shift", torch.from_numpy(SHIFT)[None, :, None,
                                                                 None],
                              persistent=False)
@@ -68,12 +102,16 @@ class LPIPS(nn.Module):
     def init_heads(self):
         """Heads at 1/C: without converted weights the distance stays
         nonnegative and zero only for equal inputs."""
-        for lin, c in zip(self.lins, VGG_CHANNELS):
+        for lin, c in zip(self.lins, self.channels):
             lin.weight.fill_(1.0 / c)
 
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self.net)
+
     def forward(self, x, y):
-        fx = self.vgg((x - self.shift) / self.scale)
-        fy = self.vgg((y - self.shift) / self.scale)
+        fx = self.backbone((x - self.shift) / self.scale)
+        fy = self.backbone((y - self.shift) / self.scale)
         total = 0.0
         for lin, a, b in zip(self.lins, fx, fy):
             a = a / torch.sqrt(torch.sum(a * a, dim=1, keepdim=True) + 1e-10)

@@ -9,23 +9,26 @@ field, and ``--device`` (default ``cuda``; without CUDA it raises unless
 ``--device cpu``). Until HGS-1M data is in the repository the trainer needs
 ``--synthetic_data true``: it trains on procedural avatars.
 
-* The frozen VAE starts seeded-random; ``--vae_path`` names a trained one,
-  but its formats (the JAX package's msgpack, the reference's safetensors)
-  wait for ``training/checkpoint.py``: an existing file raises, a missing
-  one warns, as the JAX script does.
+* The frozen VAE starts seeded-random; ``--vae_path`` loads a trained one
+  from any of the three state-file formats (``training/checkpoint.py``):
+  the VAE trainer's own ``vae_state.pt``, the JAX package's msgpack state
+  file (a full train state or bare parameters) or the reference's
+  ``autoencoder.safetensors``. A missing file warns, as the JAX script does.
 * The conditioning encoder is ``sapiens_1b_encoder()`` when
   ``text_embed_dim == 1536``, else a ``ViTFeatureEncoder`` of that width,
   and the trainer applies that same module. ``--sapiens_path`` loads
-  Sapiens weights (torchscript or state dict) into the Sapiens-geometry
-  encoder through ``convert.convert_sapiens``; it needs
-  ``text_embed_dim`` 1536.
-* ``--resume`` restores a state file of this trainer
+  Sapiens weights into the Sapiens-geometry encoder: a JAX-converted
+  msgpack parameter tree through ``convert.py``'s ViT map, or a
+  torchscript file or state dict through ``convert.convert_sapiens``; it
+  needs ``text_embed_dim`` 1536.
+* ``--resume`` restores this trainer's state file
   (``<workspace>/dit_state.pt``, written every ``save_ckpt_steps`` and at
-  the end).
+  the end), the JAX package's msgpack state file, or reference weights.
 
 Models are built on the device. Metrics go to
-``<workspace>/dit_metrics.jsonl``; every ``eval_steps`` the eval loss and a
-sampled avatar rendered against the held-out item (``dit_sample_*.png``).
+``<workspace>/dit_metrics.jsonl``; every ``eval_steps`` the eval loss over
+the held-out items (up to 4, in order, the last batch kept whole) and a
+sampled avatar rendered against the first (``dit_sample_*.png``).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from sigman_release_torch.config import parse_cli
 from sigman_release_torch.data.dataset import SyntheticAvatarDataset
 from sigman_release_torch.data.loader import DataLoader
 from sigman_release_torch.device import resolve_device
+from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.dit_trainer import (
     DiTTrainer,
     build_on,
@@ -59,19 +63,53 @@ def load_encoder(cfg, dev):
             raise ValueError(
                 f"--sapiens_path needs text_embed_dim 1536 (the Sapiens-1B "
                 f"width), not {cfg.text_embed_dim}")
-        sd, stats = convert.convert_sapiens(
-            convert.load_sapiens_source(cfg.sapiens_path), encoder,
-            verbose=True)
-        if stats["missing"] or stats["mismatches"]:
+        if checkpoint.sniff_format(cfg.sapiens_path) == "msgpack":
+            sd, stats = checkpoint.load_params_any(cfg.sapiens_path, encoder,
+                                                   cfg)
+            missing, bad = stats["missing"], stats["mismatched"]
+        else:
+            sd, stats = convert.convert_sapiens(
+                convert.load_sapiens_source(cfg.sapiens_path), encoder,
+                verbose=True)
+            missing, bad = stats["missing"], stats["mismatches"]
+        if missing or bad:
             raise ValueError(
-                f"{cfg.sapiens_path}: {len(stats['missing'])} encoder "
-                f"parameters missing, {len(stats['mismatches'])} mismatched "
-                f"(first: {(stats['missing'] + stats['mismatches'])[:3]})")
+                f"{cfg.sapiens_path}: {len(missing)} encoder parameters "
+                f"missing, {len(bad)} mismatched (first: "
+                f"{(missing + bad)[:3]})")
         encoder.load_state_dict(sd)
         return encoder
     print("[train_dit] WARNING: no --sapiens_path: the conditioning encoder "
           "is seeded-random", flush=True)
     return encoder
+
+
+def load_vae(cfg, dev):
+    """The frozen VAE and its ``LatentRenderer``: seeded-random, with the
+    weights of ``cfg.vae_path`` when that file exists (any of the three
+    formats)."""
+    vae, latent_renderer = frozen_vae(cfg, device=dev)
+    if cfg.vae_path and os.path.exists(cfg.vae_path):
+        sd, _ = checkpoint.load_params_any(cfg.vae_path, vae, cfg)
+        vae.load_state_dict(sd)
+    elif cfg.vae_path:
+        print(f"[train_dit] WARNING: vae_path {cfg.vae_path!r} not found: "
+              "training against a seeded-random frozen VAE", flush=True)
+    return vae, latent_renderer
+
+
+def loaders(cfg):
+    """(training loader, eval loader): the eval set is up to 4 held-out
+    items, read in order with the last partial batch kept."""
+    dataset = SyntheticAvatarDataset(cfg, n_items=cfg.synthetic_items,
+                                     seed=cfg.seed)
+    eval_dataset = SyntheticAvatarDataset(
+        cfg, n_items=min(4, cfg.synthetic_items), seed=cfg.seed + 999)
+    loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.num_workers,
+                        seed=cfg.seed)
+    eval_loader = DataLoader(eval_dataset, cfg.batch_size, shuffle=False,
+                             num_workers=cfg.num_workers, drop_last=False)
+    return loader, eval_loader
 
 
 def main(argv=None):
@@ -82,29 +120,14 @@ def main(argv=None):
             "the HGS-1M reader is not ported and no HGS-1M data is in the "
             "repository: pass --synthetic_data true to train on procedural "
             "avatars")
-    if cfg.vae_path and os.path.exists(cfg.vae_path):
-        raise NotImplementedError(
-            f"{cfg.vae_path}: reading VAE checkpoints (msgpack, safetensors) "
-            f"waits for the port of training/checkpoint.py")
-    if cfg.vae_path:
-        print(f"[train_dit] WARNING: vae_path {cfg.vae_path!r} not found: "
-              "training against a seeded-random frozen VAE", flush=True)
-
-    vae, latent_renderer = frozen_vae(cfg, device=dev)
+    vae, latent_renderer = load_vae(cfg, dev)
     trainer = DiTTrainer(cfg, vae, load_encoder(cfg, dev),
                          latent_renderer=latent_renderer, device=dev)
     ckpt = os.path.join(cfg.workspace, "dit_state.pt")
     if cfg.resume:
         trainer.resume(cfg.resume)
 
-    dataset = SyntheticAvatarDataset(cfg, n_items=cfg.synthetic_items,
-                                     seed=cfg.seed)
-    eval_dataset = SyntheticAvatarDataset(
-        cfg, n_items=min(4, cfg.synthetic_items), seed=cfg.seed + 999)
-    loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.num_workers,
-                        seed=cfg.seed)
-    eval_loader = DataLoader(eval_dataset, cfg.batch_size,
-                             num_workers=cfg.num_workers, seed=cfg.seed)
+    loader, eval_loader = loaders(cfg)
     num_steps = cfg.num_epochs * max(1, len(loader))
     with MetricLogger(cfg.workspace, name="dit") as logger:
         logs = trainer.fit(loader, num_steps=num_steps,

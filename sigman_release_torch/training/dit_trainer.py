@@ -32,6 +32,11 @@ clipping + AdamW.
   (``draws``).
 * ``sample_eval`` divides the sampled latents by ``vae_scaling_factor``
   once (inside the sampler), as the single-image serving path does.
+* State files: ``save`` writes the port's own (weights, optimizer, step
+  counts, a partial accumulation's gradient sums, the generator);
+  ``resume`` also reads the JAX package's msgpack state file (a full train
+  state, or bare parameters) and the reference's safetensors (parameters
+  only), through ``training/checkpoint.py``.
 
 The JAX package's FSDP and tensor-parallel modes exist because a TPU chip
 could not hold the Adam moments; one H100 holds the ``dit`` preset's state,
@@ -48,6 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from sigman_release_torch import convert
 from sigman_release_torch.config import Config
 from sigman_release_torch.device import resolve_device
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
@@ -60,6 +66,7 @@ from sigman_release_torch.models.encoders import (
     sapiens_1b_encoder,
 )
 from sigman_release_torch.models.vae import VAEModel
+from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.vae_trainer import (
     LatentRenderer,
     clip_by_global_norm_,
@@ -394,26 +401,56 @@ class DiTTrainer:
 
     def save(self, path: str):
         """The port's own state file: DiT weights, optimizer state, step
-        counts and the generator (``torch.save``, written atomically). A
-        partial gradient accumulation is not saved."""
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp"
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.opt.state_dict(),
-                    "step": self.step, "updates": self.updates,
-                    "micro": self._micro,
-                    "generator": self.generator.get_state()}, tmp)
-        os.replace(tmp, path)
+        counts, the gradient sums of a partial accumulation and the
+        generator (``torch.save``, written atomically)."""
+        checkpoint.save_torch(path, {
+            "model": self.model.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "step": self.step, "updates": self.updates,
+            "micro": self._micro,
+            "grads": checkpoint.partial_grads(
+                self.model.parameters(), self._micro,
+                self.cfg.gradient_accumulation_steps),
+            "generator": self.generator.get_state()})
 
     def resume(self, path: str):
-        """Restore a state file written by :meth:`save`."""
-        state = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["optimizer"])
-        self.step, self.updates = int(state["step"]), int(state["updates"])
-        self._micro = int(state["micro"])
-        self.generator.set_state(state["generator"].cpu())
-        self.opt.zero_grad(set_to_none=True)
+        """Restore a state file in any of the three formats: the port's own
+        (everything :meth:`save` wrote); a msgpack full train state
+        (weights, AdamW moments and count, a partial accumulation, the
+        step); a msgpack parameter tree or reference safetensors (the DiT's
+        parameters only)."""
+        fmt = checkpoint.sniff_format(path)
+        if fmt == "torch":
+            state = checkpoint.load_torch(path)
+            self.model.load_state_dict(state["model"])
+            self.opt.load_state_dict(state["optimizer"])
+            self.step, self.updates = int(state["step"]), int(state["updates"])
+            self._micro = int(state["micro"])
+            checkpoint.restore_grads_(self.model.parameters(),
+                                      state.get("grads"))
+            self.generator.set_state(state["generator"])
+            return
+        state = checkpoint.read_msgpack(path) if fmt == "msgpack" else None
+        if state is None or "step" not in state:
+            sd, _ = checkpoint.load_params_any(path, self.model, self.cfg)
+            self.model.load_state_dict(sd)
+            return
+        # a full train state of the JAX package's DiT trainer: params,
+        # opt_state (clip + AdamW over the params), step (micro-steps)
+        key_map = convert.key_map_for(self.model, self.cfg)
+        restore = checkpoint.tree_params
+        checkpoint.copy_params_(self.model.parameters(), restore(
+            self.model, state["params"], key_map, fill="weights"))
+        adam, mini, acc = checkpoint.optimizer_parts(state["opt_state"])
+        checkpoint.load_adamw_(self.opt, zip(
+            restore(self.model, adam["mu"], key_map),
+            restore(self.model, adam["nu"], key_map)), int(adam["count"]))
+        k = self.cfg.gradient_accumulation_steps
+        checkpoint.restore_grads_(
+            self.model.parameters(), None if acc is None or not mini else
+            [g * (mini / k) for g in restore(self.model, acc, key_map)])
+        self.step, self.updates = int(state["step"]), int(adam["count"])
+        self._micro = mini
 
 
 def step_flops(cfg: Config, batch: int, cond_tokens: int) -> Dict[str, float]:

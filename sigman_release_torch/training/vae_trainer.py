@@ -22,24 +22,37 @@ without gradients and trains the PatchGAN on the detached renders.
   ``torch.Generator`` unless the caller passes the noise.
 * A D step before ``disc_start`` applies AdamW to zero gradients, which
   still decays the weights, as the JAX package's gated loss does.
+* Eval (``eval_step`` / ``evaluate``): the posterior mean, no dropout, no
+  gradients; PSNR, masked PSNR, SSIM and LPIPS on the full-resolution
+  views, each reduced in linear form (mean squared errors, the masked max)
+  before its nonlinear transform. The LPIPS net is the loss's VGG16, or a
+  second one of ``cfg.eval_lpips_net`` (``"alex"``: the reference's eval
+  net).
+* State files (``save`` / ``resume``): the port's own ``torch.save`` file
+  holds everything (weights, logvar, both AdamW states, the step and
+  micro-step counts, a partial accumulation's gradient sums, the
+  generator); ``resume`` also reads the JAX package's msgpack state file
+  (a full train state: weights, logvar, both optimizers' moments and
+  counts, the step; or bare parameters) and the reference's safetensors
+  (parameters only), through ``training/checkpoint.py``.
 
 ``LatentRenderer`` is the decode path (decoder + heads -> deform ->
 render) that the trainer renders its attribute maps through; called on a
 latent it is the JAX trainer's ``render_latent`` (no gradients), which the
 DiT trainer's sampling eval runs.
-
-Not ported yet: ``eval_step``, ``resume`` and checkpoint writing.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from sigman_release_torch import convert
 from sigman_release_torch.body.deformer import GaussianDeformer
 from sigman_release_torch.body.smplx import (
     SMPLXModel,
@@ -58,7 +71,7 @@ from sigman_release_torch.inference import HEAD_INIT_STD, random_weights_
 from sigman_release_torch.losses.combined import VAELoss
 from sigman_release_torch.losses.gan import PatchDiscriminator
 from sigman_release_torch.losses.lpips import LPIPS
-from sigman_release_torch.losses.metrics import psnr
+from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.vae import (
     DiagonalGaussian,
     VAEModel,
@@ -66,6 +79,7 @@ from sigman_release_torch.models.vae import (
     sample_gaussian_attrs,
 )
 from sigman_release_torch.renderer import GaussianRenderer
+from sigman_release_torch.training import checkpoint
 from sigman_release_torch.utils.profiling import StepTimer
 from sigman_release_torch.utils.timing import NULL_TIMER
 
@@ -180,6 +194,9 @@ class VAETrainer:
             self.vae = VAEModel(cfg).to(dev)
             self.disc = PatchDiscriminator(n_layers=n_layers).to(dev)
             self.lpips = LPIPS().to(dev).requires_grad_(False)
+            self.lpips_eval = (
+                LPIPS(cfg.eval_lpips_net).to(dev).requires_grad_(False)
+                if cfg.eval_lpips_net != "vgg" else self.lpips)
         self.latent_renderer = LatentRenderer(cfg, self.vae, body_model,
                                               template, device=dev)
         self.logvar = nn.Parameter(torch.zeros((), device=dev))
@@ -201,7 +218,7 @@ class VAETrainer:
 
     def init(self, seed: int):
         """Seeded weights: the VAE's by ``init_vae_``, the discriminator's
-        and the LPIPS trunk's linear/conv N(0, 1/fan_in), LPIPS heads 1/C,
+        and the LPIPS trunks' linear/conv N(0, 1/fan_in), LPIPS heads 1/C,
         logvar 0; the trainer's generator restarts from ``seed``."""
         dev = self.device
 
@@ -212,14 +229,18 @@ class VAETrainer:
         random_weights_(self.disc, gen(2))
         random_weights_(self.lpips.vgg, gen(3))
         self.lpips.init_heads()
+        if self.lpips_eval is not self.lpips:
+            random_weights_(self.lpips_eval.backbone, gen(6))
+            self.lpips_eval.init_heads()
         with torch.no_grad():
             self.logvar.zero_()
         self.generator = gen(5)
 
-    def load_state_dicts(self, vae=None, disc=None, lpips=None, logvar=None):
+    def load_state_dicts(self, vae=None, disc=None, lpips=None, logvar=None,
+                         lpips_eval=None):
         """Load converted weights (``convert.py``)."""
         for module, sd in ((self.vae, vae), (self.disc, disc),
-                           (self.lpips, lpips)):
+                           (self.lpips, lpips), (self.lpips_eval, lpips_eval)):
             if sd is not None:
                 module.load_state_dict(sd)
         if logvar is not None:
@@ -233,18 +254,21 @@ class VAETrainer:
                 for k in BATCH_KEYS}
 
     def forward(self, batch, noise: Optional[torch.Tensor] = None,
-                train: bool = False, timer=NULL_TIMER):
+                train: bool = False, timer=NULL_TIMER,
+                sample_posterior: bool = True):
         """Full differentiable forward: images -> rendered views.
 
         ``batch``: device tensors (:meth:`to_device`). ``noise`` [B,h,w,Cl]
         is the posterior sample's standard normal draw (default: from the
-        trainer's generator); ``train`` turns on the bottleneck dropout.
-        Returns (outputs, posterior); the spans "encoder", "decoder",
-        "deform", "knn", "binning" and "forward_tiles" go to ``timer``."""
+        trainer's generator; ``sample_posterior=False`` decodes the mean);
+        ``train`` turns on the bottleneck dropout. Returns (outputs,
+        posterior); the spans "encoder", "decoder", "deform", "knn",
+        "binning" and "forward_tiles" go to ``timer``."""
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
             attr_map, posterior = self.vae(
-                batch["input"], batch["UV_inital"], noise, train=train,
+                batch["input"], batch["UV_inital"], noise,
+                sample_posterior=sample_posterior, train=train,
                 generator=self.generator, timer=timer)
         posterior = DiagonalGaussian(posterior.mean.float(),
                                      posterior.logvar.float())
@@ -308,21 +332,82 @@ class VAETrainer:
         self.step += 1
         return {n: v.detach() for n, v in logs.items()}
 
+    # ------------------------------------------------------------------ eval
+
+    @torch.no_grad()
+    def eval_step(self, batch):
+        """Posterior-mean eval of a device batch: (metrics, outputs).
+        ``metrics``: psnr, masked_psnr (10 log10(max(masked max^2, 1e-12) /
+        max(masked mse, 1e-12))), ssim over the views and lpips of the
+        full-resolution views in [-1, 1]; ``outputs``: the render's
+        images_pred / alphas_pred / images_gt / masks_gt."""
+        outputs, _ = self.forward(batch, sample_posterior=False)
+        outputs.pop("overflow")
+        pred, gt = outputs["images_pred"], outputs["images_gt"]
+        mask = outputs["masks_gt"]
+        flat_p = pred.reshape(-1, *pred.shape[2:])
+        flat_g = gt.reshape(-1, *gt.shape[2:])
+        mse = torch.mean((pred - gt) ** 2)
+        masked_mse = torch.mean((pred * mask - gt * mask) ** 2)
+        masked_max = torch.max(pred * mask)
+        metrics = {
+            "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12)),
+            "masked_psnr": 10.0 * torch.log10(
+                torch.clamp(masked_max ** 2, min=1e-12)
+                / torch.clamp(masked_mse, min=1e-12)),
+            "ssim": ssim(flat_p, flat_g),
+            "lpips": torch.mean(self.lpips_eval(flat_p * 2.0 - 1.0,
+                                                flat_g * 2.0 - 1.0)),
+        }
+        return metrics, outputs
+
+    def evaluate(self, eval_loader, max_batches: int = 8,
+                 vis_path: Optional[str] = None) -> Dict[str, float]:
+        """``eval_step`` over up to ``max_batches`` loader batches: the
+        per-batch means as ``eval_*``, and the first batch's GT | pred PNG
+        at ``vis_path``."""
+        sums: Dict[str, list] = {}
+        first = None
+        for i, batch in enumerate(eval_loader):
+            if i >= max_batches:
+                break
+            metrics, outputs = self.eval_step(self.to_device(batch))
+            for k, v in metrics.items():
+                sums.setdefault(k, []).append(float(v))
+            if first is None:
+                first = {k: outputs[k].float().cpu().numpy()
+                         for k in ("images_pred", "images_gt")}
+        if vis_path and first is not None:
+            from sigman_release_torch.utils.visualize import save_visualization
+
+            save_visualization(first, vis_path)
+        return {f"eval_{k}": float(np.mean(v)) for k, v in sums.items()}
+
     # ------------------------------------------------------------------ fit
 
     def fit(self, loader, num_steps: Optional[int] = None,
-            log_every: int = 10, logger=None) -> Dict[str, float]:
+            log_every: int = 10, ckpt_path: Optional[str] = None,
+            logger=None, eval_loader=None,
+            eval_every: Optional[int] = None) -> Dict[str, float]:
         """Alternate G and D steps by step parity once ``disc_start`` is
         reached, over ``loader`` epochs until ``num_steps`` (one epoch if
-        None). Returns the last step's logs as floats."""
+        None): log every ``log_every`` steps, save to ``ckpt_path`` every
+        ``save_ckpt_steps`` and at the end, and every ``eval_every`` steps
+        ``evaluate`` on ``eval_loader`` (PNG at
+        ``<workspace>/eval_<step>.png``), keeping the best of each metric
+        (lowest lpips, highest of the others), logged as ``best_*`` at the
+        end. Returns the last step's logs as floats."""
         cfg = self.cfg
         timer = StepTimer()
         timer.tick()
         logs: Dict[str, float] = {}
-        while True:
+        best: Dict[str, float] = {}
+        done = False
+        while not done:
             for batch in loader:
                 if num_steps is not None and self.step >= num_steps:
-                    return logs
+                    done = True
+                    break
                 batch = self.to_device(batch)
                 use_d = self.step >= cfg.disc_start and self.step % 2 == 1
                 out = (self.train_step_d(batch) if use_d
@@ -336,8 +421,112 @@ class VAETrainer:
                           flush=True)
                     if logger is not None:
                         logger.log(self.step, {**logs, **summ})
+                if ckpt_path and self.step % cfg.save_ckpt_steps == 0:
+                    self.save(ckpt_path)
+                if (eval_loader is not None and eval_every
+                        and self.step % eval_every == 0):
+                    ev = self.evaluate(eval_loader, vis_path=os.path.join(
+                        cfg.workspace, f"eval_{self.step:07d}.png"))
+                    for k, v in ev.items():
+                        if k not in best or (v > best[k]) == ("lpips" not in k):
+                            best[k] = v
+                    print(f"[vae] eval @ {self.step}: {ev}", flush=True)
+                    if logger is not None:
+                        logger.log(self.step, ev)
             if num_steps is None:
-                return logs
+                done = True
+        if ckpt_path:
+            self.save(ckpt_path)
+        if best:
+            summary = {f"best_{k}": v for k, v in best.items()}
+            print(f"[vae] best eval: {summary}", flush=True)
+            if logger is not None:
+                logger.log(self.step, summary)
+        return logs
+
+    # ----------------------------------------------------------- state file
+
+    def save(self, path: str):
+        """The port's own state file (``torch.save``, written atomically):
+        VAE, discriminator and logvar, both AdamW states, the step and
+        micro-step counts, the gradient sums of a partial accumulation, and
+        the generator."""
+        k = self.cfg.gradient_accumulation_steps
+        params_d = list(self.disc.parameters())
+        checkpoint.save_torch(path, {
+            "vae": self.vae.state_dict(), "disc": self.disc.state_dict(),
+            "logvar": self.logvar.detach(),
+            "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
+            "step": self.step, "micro": dict(self._micro),
+            "grads_g": checkpoint.partial_grads(self.params_g,
+                                                self._micro["g"], k),
+            "grads_d": checkpoint.partial_grads(params_d, self._micro["d"], k),
+            "generator": self.generator.get_state()})
+
+    def resume(self, path: str):
+        """Restore a state file in any of the three formats: the port's own
+        (everything :meth:`save` wrote); a msgpack full train state
+        (weights, logvar, discriminator, both optimizers' moments and
+        counts, a partial accumulation, the step); a msgpack parameter tree
+        or reference safetensors (the VAE's parameters only)."""
+        fmt = checkpoint.sniff_format(path)
+        if fmt == "torch":
+            self._resume_port(checkpoint.load_torch(path))
+            return
+        state = checkpoint.read_msgpack(path) if fmt == "msgpack" else None
+        if state is None or "step" not in state:
+            sd, _ = checkpoint.load_params_any(path, self.vae, self.cfg)
+            self.vae.load_state_dict(sd)
+            return
+        self._resume_msgpack(state)
+
+    def _resume_port(self, state):
+        self.vae.load_state_dict(state["vae"])
+        self.disc.load_state_dict(state["disc"])
+        with torch.no_grad():
+            self.logvar.copy_(state["logvar"])
+        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_d.load_state_dict(state["opt_d"])
+        self.step = int(state["step"])
+        self._micro = {kind: int(n) for kind, n in state["micro"].items()}
+        checkpoint.restore_grads_(self.params_g, state["grads_g"])
+        checkpoint.restore_grads_(self.disc.parameters(), state["grads_d"])
+        self.generator.set_state(state["generator"])
+
+    def _resume_msgpack(self, state):
+        """A full train state of the JAX package's VAE trainer: ``params``,
+        ``logvar``, ``disc_params``, ``opt_state_g`` (over (params,
+        logvar)), ``opt_state_d``, ``step``. Moments and accumulated
+        gradients go through the same Flax-path maps as the weights."""
+        cfg, k = self.cfg, self.cfg.gradient_accumulation_steps
+        vae_map = convert.key_map_for(self.vae, cfg)
+        disc_map = convert.key_map_for(self.disc, cfg)
+
+        restore, put = checkpoint.tree_params, checkpoint.copy_params_
+        put(self.vae.parameters(), restore(self.vae, state["params"],
+                                            vae_map, fill="weights"))
+        put([self.logvar], [state["logvar"]])
+        put(self.disc.parameters(), restore(self.disc, state["disc_params"],
+                                             disc_map, fill="weights"))
+        adam, mini_g, acc = checkpoint.optimizer_parts(state["opt_state_g"])
+        moments = zip(restore(self.vae, adam["mu"]["0"], vae_map)
+                      + [adam["mu"]["1"]],
+                      restore(self.vae, adam["nu"]["0"], vae_map)
+                      + [adam["nu"]["1"]])
+        checkpoint.load_adamw_(self.opt_g, moments, int(adam["count"]))
+        grads_g = None if acc is None or not mini_g else [
+            g * (mini_g / k) for g in restore(self.vae, acc["0"], vae_map)
+            + [acc["1"]]]
+        adam, mini_d, acc = checkpoint.optimizer_parts(state["opt_state_d"])
+        moments = zip(restore(self.disc, adam["mu"], disc_map),
+                      restore(self.disc, adam["nu"], disc_map))
+        checkpoint.load_adamw_(self.opt_d, moments, int(adam["count"]))
+        grads_d = None if acc is None or not mini_d else [
+            g * (mini_d / k) for g in restore(self.disc, acc, disc_map)]
+        checkpoint.restore_grads_(self.params_g, grads_g)
+        checkpoint.restore_grads_(self.disc.parameters(), grads_d)
+        self._micro = {"g": mini_g, "d": mini_d}
+        self.step = int(state["step"])
 
 
 def synthetic_setup(cfg: Config, *, device="cuda", n_verts: int = 100_002,
