@@ -65,6 +65,23 @@ Phases (any failure exits non-zero before the final line):
              the eval's own pair stream; and the ``test_tiny`` DiT
              accumulation round trip (save at micro-step 1 of 2, resume,
              compare with an uninterrupted run).
+13. ddp       — last: (a) NCCL at world size 1, in a process group the
+             phase initialises: the ``vae_b`` trainer of phase 7's set-up
+             under DDP (``disc_start`` 2: two G steps, then one D step with
+             the gate open) against a bare trainer on the same weights and
+             noise, and the ``dit`` preset at B = 8, two steps, likewise
+             (loss, gradient at each clip, new weights; step times, peak
+             memory, buckets and bytes all-reduced; K1 / K2 launch counts
+             zeroed before the DDP steps); (b) two ranks sharing the card
+             over gloo, child processes with one deadline
+             (``parallel/launch.py``, ``parallel/cases.py``) against one
+             process on the whole batch (and a second one-process run,
+             the backward's spread): ``vae_b`` data 2 x view 1 at B = 1 per
+             rank (a G step, then a D step with the gate open, dropout off;
+             then the eval over 3 held-out items, 2 and 1), ``vae_b`` data
+             1 x view 2 (5 of the 10 views on each rank, dropout on: both
+             ranks draw the same masks) and the ``test_tiny`` DiT at data
+             2 (two steps, 4 items, the eval loss over 3).
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -143,6 +160,30 @@ RESUME_PARAM_TOL = 1e-5
 # test_tiny DiT: an accumulation saved and resumed against an uninterrupted
 # one, max |difference| of the weights (TF32 off, cuDNN deterministic)
 SMALL_RESUME_TOL = 1e-6
+# phase 13, DDP against one process. NCCL at world size 1 against a bare
+# trainer on the same weights and noise: the first step's loss (relative),
+# its gradient at the clip and the new weights (relative L2) within
+# WORLD1_TOL plus twice what a second bare run of the same steps differs
+# by; after the first update, each loss and gradient within the limits
+# of the gloo layouts below. The steps' backward is not deterministic:
+# cuDNN's attention backward and the antialiased resize before LPIPS have
+# no deterministic algorithm (``torch.use_deterministic_algorithms`` names
+# both), so two bare runs of one step differ (phase 13 prints by how much),
+# and the steps after the first start from weights that differ. A
+# process's first dit step also rounds its loss differently.
+WORLD1_TOL = 1e-6
+# two gloo ranks sharing the card against one process on the whole batch:
+# loss relative, the gradient at each clip and the update (new - old
+# weights) relative L2, each within its limit or twice what a second
+# one-process run differs by, whichever is larger. The two runs differ in
+# how the batch is split, and in the rounding of a backward that is not
+# deterministic; Adam's first update is near lr sign(g), so a gradient that
+# is zero but for rounding (a key norm's bias before the softmax) moves its
+# weights by +-lr at random in every run.
+DDP_LOSS_TOL = 1e-3
+DDP_GRAD_TOL = 5e-3
+DDP_TIMEOUT = 600               # seconds for the two ranks of one layout
+DDP_EVAL_TOL = 1e-3             # eval metrics, relative
 EVAL_ITEMS = 2
 DEVICE = "cuda"
 PRESET = "dit"
@@ -610,6 +651,7 @@ def main():
     train = train_phases(dev, body, template, clock)
     dit = dit_phases(dev, body, template, clock)
     ckpt = ckpt_phase(dev, body, template, clock)
+    ddp = ddp_phase(dev, body, template, clock)
     clock.report()
 
     kernels = [{
@@ -618,12 +660,14 @@ def main():
         "source": "sigman_release_torch/ops/rasterizer/csrc/forward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
         "launches": (launches + train["k1_launches"] + dit["k1_launches"]
-                     + ckpt["k1_resume"] + ckpt["k1_eval"]),
+                     + ckpt["k1_resume"] + ckpt["k1_eval"]
+                     + ddp["forward_tiles"]),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
                              "dit_train": dit["k1_launches"],
                              "vae_resume": ckpt["k1_resume"],
-                             "vae_eval": ckpt["k1_eval"]},
+                             "vae_eval": ckpt["k1_eval"],
+                             "ddp": ddp["forward_tiles"]},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -649,11 +693,12 @@ def main():
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
-        "launches": train["k2_launches"] + ckpt["k2_resume"],
+        "launches": (train["k2_launches"] + ckpt["k2_resume"]
+                     + ddp["backward_tiles"]),
         "launches_by_path": {"serve": 0, "train": train["k2_launches"],
                              "dit_train": 0,
                              "vae_resume": ckpt["k2_resume"],
-                             "vae_eval": 0},
+                             "vae_eval": 0, "ddp": ddp["backward_tiles"]},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -1411,6 +1456,304 @@ def dit_phases(dev, body, template, clock):
     return {"k1_launches": k1_dit, "k1_err": held["err"], "k1_ms": held["ms"],
             "k1_plain_ms": held["plain_ms"], "k1_bound": held["new"][0],
             "k1_bound_old": held["old"][0]}
+
+
+class ClipTap:
+    """At each clip of ``module``'s optimizer step (its
+    ``clip_by_global_norm_``): copy the gradients to the host, or hold them
+    against such a copy taken in another run (relative L2, one tensor at a
+    time on the card)."""
+
+    def __init__(self, module, against=None):
+        self.module, self.against = module, against
+        self.real = module.clip_by_global_norm_
+        self.host, self.rel = [], []
+
+    def __enter__(self):
+        def clip(params, max_norm):
+            params = list(params)
+            grads = [p.grad for p in params]
+            if self.against is None:
+                self.host.append(host_copy(grads))
+            else:
+                self.rel.append(rel_l2(grads, self.against[len(self.rel)]))
+            return self.real(params, max_norm)
+
+        self.module.clip_by_global_norm_ = clip
+        return self
+
+    def __exit__(self, *exc):
+        self.module.clip_by_global_norm_ = self.real
+
+
+def host_copy(tensors):
+    return [t.detach().float().to("cpu", copy=True) for t in tensors]
+
+
+def rel_l2(tensors, host):
+    """|tensors - host| / |host| in L2 over all tensors, summed in f64 (one
+    tensor at a time: the card holds one host tensor's copy at most)."""
+    import torch
+
+    num = den = 0.0
+    for t, h in zip(tensors, host):
+        h = h.to(t.device)
+        num += float((t.detach().float() - h).square().sum(
+            dtype=torch.float64))
+        den += float(h.square().sum(dtype=torch.float64))
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def world1_steps(make, kind, run, step, module, against=None):
+    """``make()`` -> a trainer; ``run(trainer)`` takes its steps and
+    returns their losses; ``step(trainer)`` takes one more step, timed
+    twice after them without the tap. Returns the losses, the gradients at
+    each clip (host copies, or their relative L2 against ``against``), the
+    new weights on the host (or theirs), the peak GiB of the steps, the
+    timed steps' ms and, under DDP, its buckets."""
+    import torch
+
+    from sigman_release_torch.parallel.cases import buckets
+
+    trainer = make()
+    params = (list(trainer.model.parameters()) if kind == "dit"
+              else [*trainer.params_g, *trainer.disc.parameters()])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ClipTap(module, against and against["clips"]) as tap:
+        losses = run(trainer)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"losses": losses, "peak": peak,
+           "buckets": buckets(trainer.ddp if kind == "dit"
+                              else trainer.ddp_g)}
+    if against is None:
+        out.update(clips=tap.host, weights=host_copy(params))
+    else:
+        out.update(clip_rel=tap.rel,
+                   weights_rel=rel_l2(params, against["weights"]))
+    out["ms"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(trainer)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+    del trainer, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_phase(dev, body, template, clock):
+    """Phase 13; returns the K1 / K2 launches of its DDP runs."""
+    import torch
+    import torch.distributed as dist
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+    from sigman_release_torch.parallel import cases, launch
+    from sigman_release_torch.parallel.mesh import make_mesh
+    from sigman_release_torch.training import dit_trainer, vae_trainer
+
+    clock.start("ddp")
+    # ---- (a) NCCL at world size 1 against two runs of the bare trainers
+    cfg = PRESETS[TRAIN_PRESET].replace(disc_start=2)
+    q, c = cfg.uv_query_size, cfg.latent_channels
+    noise = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(1, q, q, c)).astype(np.float32)).to(dev)
+    batch = {}
+
+    def make_vae(mesh):
+        def make():
+            trainer, b = vae_trainer.synthetic_setup(
+                cfg, device=dev, body_model=body, template=template,
+                mesh=mesh)
+            batch.update(b)
+            return trainer
+        return make
+
+    def run_vae(trainer):
+        return [float(trainer.train_step_g(batch, noise)["loss"]),
+                float(trainer.train_step_g(batch, noise)["loss"]),
+                float(trainer.train_step_d(batch, noise)["GAN_D"])]
+
+    def g_step(trainer):
+        trainer.train_step_g(batch, noise)
+
+    vae_runs = (run_vae, g_step, vae_trainer)
+    bare = world1_steps(make_vae(cases.ONE), "vae", *vae_runs)
+    again = world1_steps(make_vae(cases.ONE), "vae", *vae_runs, against=bare)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        k1.forward_tiles.launches = 0
+        k2.backward_tiles.launches = 0
+        wrapped = world1_steps(make_vae(mesh), "vae", *vae_runs,
+                               against=bare)
+        launches = {"forward_tiles": k1.forward_tiles.launches,
+                    "backward_tiles": k2.backward_tiles.launches}
+        del batch
+        out_vae = world1_report("vae_b", bare, again, wrapped)
+        print(f"[ddp] vae_b under DDP: K1 launches "
+              f"{launches['forward_tiles']}, K2 launches "
+              f"{launches['backward_tiles']} (4 G steps, 1 D step)",
+              flush=True)
+        if launches != {"forward_tiles": 5, "backward_tiles": 4}:
+            fail(f"the vae_b steps under DDP launched K1 / K2 "
+                 f"{launches}, not 5 / 4 times")
+
+        dcfg = PRESETS[DIT_PRESET]
+        draws = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
+                 cases.dit_draws(dcfg, dcfg.batch_size, 13).items()}
+        parts = {}
+
+        def make_dit(m):
+            def make():
+                if not parts:
+                    trainer, b, _ = dit_trainer.synthetic_setup(
+                        dcfg, device=dev, body_model=body, template=template,
+                        mesh=m)
+                    parts.update(batch=b, vae=trainer.vae,
+                                 encoder=trainer.encoder)
+                    return trainer
+                return dit_trainer.DiTTrainer(dcfg, parts["vae"],
+                                              parts["encoder"], device=dev,
+                                              mesh=m)
+            return make
+
+        def dit_step(trainer):
+            return float(trainer.train_step(parts["batch"], draws)["loss"])
+
+        dit_runs = (lambda t: [dit_step(t), dit_step(t)], dit_step,
+                    dit_trainer)
+        bare = world1_steps(make_dit(cases.ONE), "dit", *dit_runs)
+        again = world1_steps(make_dit(cases.ONE), "dit", *dit_runs,
+                             against=bare)
+        wrapped = world1_steps(make_dit(mesh), "dit", *dit_runs,
+                               against=bare)
+        out_dit = world1_report("dit", bare, again, wrapped)
+        del bare, again, parts, draws
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- (b) two gloo ranks sharing the card, against one process: a G
+    # step on the same weights, then a D step with the gate open
+    gcfg = cfg.replace(disc_start=1)
+    layouts = [
+        # dropout off on a data split: each rank draws its item's masks
+        # from its own generator, one process both from one
+        ("vae_b data 2 x view 1", "vae_case", dict(
+            cfg=gcfg.replace(attn_dropout=0.0), mesh_shape=(2,),
+            mesh_axes=("data",), items=[0, 1], steps=("g", "d"),
+            eval_items=[2, 3, 4], n_verts=N_VERTS, repeat=True)),
+        ("vae_b data 1 x view 2", "vae_case", dict(
+            cfg=gcfg, mesh_shape=(1, 2), mesh_axes=("data", "view"),
+            items=[0], steps=("g", "d"), n_verts=N_VERTS, repeat=True)),
+        ("test_tiny DiT data 2", "dit_case", dict(
+            cfg=PRESETS["test_tiny"].replace(lr_scheduler="constant",
+                                             noised_condition_dropout=0.5),
+            items=[0, 1, 2, 3], steps=2, eval_items=[4, 5, 6], repeat=True)),
+    ]
+    gloo = {}
+    for name, case, kwargs in layouts:
+        t0 = time.perf_counter()
+        res = launch.run(f"sigman_release_torch.parallel.cases:{case}", 2,
+                         kwargs, device="cuda:0", backend="gloo",
+                         timeout=DDP_TIMEOUT, threads=4)
+        r0, floor = res[0], res[0]["floor"]
+        for r in res:
+            for k, n in r.get("launches", {}).items():
+                launches[k] += n
+        print(f"[ddp] {name}: 2 gloo ranks on one card in "
+              f"{time.perf_counter() - t0:.1f} s; against one process (a "
+              f"second one-process run in brackets): loss relative "
+              f"{fmt(r0['loss_rel'])} ({fmt(floor['loss_rel'])}), gradient "
+              f"at each clip relative L2 {fmt(r0['grad_rel'])} "
+              f"({fmt(floor['grad_rel'])}), update relative L2 "
+              f"{r0['update_rel']:.3e} ({floor['update_rel']:.3e}), new "
+              f"weights {r0['weights_rel']:.3e} ({floor['weights_rel']:.3e});"
+              f" step ms one process {fmt(r0['ref_step_ms'], '.1f')}, ranks "
+              f"{[fmt(r['step_ms'], '.1f') for r in res]}; peak GiB one "
+              f"process {r0['ref_peak_gib']}, ranks "
+              f"{[r['peak_gib'] for r in res]}; buckets {r0['buckets']}; "
+              f"launches {[r.get('launches') for r in res]}", flush=True)
+        checks = ([(d, f, DDP_LOSS_TOL) for d, f in
+                   zip(r0["loss_rel"], floor["loss_rel"])]
+                  + [(d, f, DDP_GRAD_TOL) for d, f in
+                     zip(r0["grad_rel"], floor["grad_rel"])]
+                  + [(r0["update_rel"], floor["update_rel"], DDP_GRAD_TOL)])
+        if (r0["n_clips"][0] != r0["n_clips"][1]
+                or not all(d <= max(tol, 2 * f) for d, f, tol in checks)):
+            fail(f"{name}: two ranks differ from one process by more than "
+                 f"the limits and twice a second one-process run: {checks}")
+        for key, ref_key in (("eval", "ref_eval"),
+                             ("eval_loss", "ref_eval_loss")):
+            if ref_key not in r0:
+                continue
+            ref = r0[ref_key]
+            got = [r[key] for r in res]
+            print(f"[ddp] {name}: {key} on the ranks {got}, one process "
+                  f"{ref}", flush=True)
+            pairs = ([(g[k], ref[k]) for g in got for k in ref]
+                     if isinstance(ref, dict) else [(g, ref) for g in got])
+            if not all(abs(a - b) <= DDP_EVAL_TOL * abs(b) for a, b in pairs):
+                fail(f"{name}: the {key} of two ranks differs from one "
+                     f"process")
+        gloo[name] = r0
+    if launches["forward_tiles"] < 1 or launches["backward_tiles"] < 1:
+        fail(f"the DDP runs launched K1 / K2 {launches} times")
+    return {**launches, "vae": out_vae, "dit": out_dit}
+
+
+def fmt(values, spec=".3e"):
+    return "[" + ", ".join(f"{v:{spec}}" for v in values) + "]"
+
+
+def world1_report(name, bare, again, wrapped):
+    """Print and check one world-size-1 comparison (``world1_steps``): the
+    DDP run and a second bare run, each against the first bare run."""
+    def loss_rel(run):
+        return [abs(a - b) / max(abs(b), 1e-30)
+                for a, b in zip(run["losses"], bare["losses"])]
+
+    b = wrapped["buckets"]
+    print(f"[ddp] {name} at world size 1 (NCCL) against the bare trainer "
+          f"(a second bare run in brackets): losses {wrapped['losses']} / "
+          f"{bare['losses']}, relative {fmt(loss_rel(wrapped))} "
+          f"({fmt(loss_rel(again))}); gradient at each clip relative L2 "
+          f"{fmt(wrapped['clip_rel'])} ({fmt(again['clip_rel'])}); new "
+          f"weights relative L2 {wrapped['weights_rel']:.3e} "
+          f"({again['weights_rel']:.3e}); two more steps untapped, ms: DDP "
+          f"{fmt(wrapped['ms'], '.1f')}, bare {fmt(bare['ms'], '.1f')} "
+          f"({fmt(again['ms'], '.1f')}); peak GiB DDP {wrapped['peak']:.2f}, "
+          f"bare {bare['peak']:.2f} ({again['peak']:.2f}); {b['count']} "
+          f"bucket(s), {b['bytes']} gradient bytes all-reduced per step",
+          flush=True)
+    (first, *later), floor = loss_rel(wrapped), loss_rel(again)[0]
+    (clip, *clips), (clip_floor, *clip_floors) = (wrapped["clip_rel"],
+                                                   again["clip_rel"])
+    pairs = [(first, floor), (clip, clip_floor),
+             (wrapped["weights_rel"], again["weights_rel"])]
+    if (len(wrapped["clip_rel"]) != len(bare["clips"])
+            or not all(d <= DDP_LOSS_TOL for d in later)
+            or not all(d <= max(DDP_GRAD_TOL, 2 * f)
+                       for d, f in zip(clips, clip_floors))
+            or not all(d <= WORLD1_TOL + 2 * f for d, f in pairs)):
+        fail(f"{name} under DDP at world size 1 differs from the bare "
+             f"trainer by more than a second bare run does")
+    return {"ms": wrapped["ms"], "bare_ms": bare["ms"],
+            "again_ms": again["ms"], "peak": wrapped["peak"],
+            "bare_peak": bare["peak"], "buckets": b}
 
 
 if __name__ == "__main__":

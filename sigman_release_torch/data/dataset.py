@@ -112,22 +112,25 @@ class HGSDataset:
 
 class SyntheticAvatarDataset(HGSDataset):
     """Procedural stand-in for HGS-1M: random coloured Gaussian avatars
-    rendered with the dense oracle (on the CPU) from an orbit rig."""
+    rendered with the dense oracle (on the CPU) from an orbit rig. Item i
+    is drawn from seed i + 1000; ``items`` lists the item numbers this
+    dataset serves (all ``n_items`` until a rank keeps its share)."""
 
     def __init__(self, cfg: Config, n_items: int = 8, seed: int = 0,
                  n_gauss: int = 256):
         self.cfg = cfg
         self.training = True
         self.rng = np.random.default_rng(seed)
-        self.n_items = n_items
+        self.items = list(range(n_items))
         self.n_gauss = n_gauss
         self.proj = projection_matrix(cfg.znear, cfg.zfar, cfg.fovx, cfg.fovy)
         self._cache: Dict[int, Dict[str, np.ndarray]] = {}
 
     def __len__(self):
-        return self.n_items
+        return len(self.items)
 
-    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        idx = self.items[i]
         if idx in self._cache:
             return self._cache[idx]
         from sigman_release_torch.ops.rasterizer.preprocess import build_cov3d

@@ -1,4 +1,4 @@
-"""Batching with thread-pool prefetch, and the per-process item split
+"""Batching with thread-pool prefetch, and the per-rank item split
 (port of the JAX package's ``data/loader.py``). Batches are dicts of numpy
 arrays; with ``shuffle`` each epoch's order draws from a ``torch.Generator``
 seeded with ``seed + epoch``, else it is the dataset's; with ``drop_last``
@@ -10,14 +10,23 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 
-def shard_for_host(items: Sequence, rank: int, world_size: int) -> list:
-    """Strided split of the item list across processes."""
+def shard_for_host(items: Sequence, rank: Optional[int] = None,
+                   world_size: Optional[int] = None, mesh=None) -> list:
+    """Strided split of the item list over the data ranks (the
+    DistributedSampler's split without its padding): ``rank`` and
+    ``world_size`` default to ``mesh``'s data index and size, so the view
+    ranks of one data index read the same items (one process: all of
+    them)."""
+    if rank is None:
+        rank = mesh.data_index if mesh is not None else 0
+    if world_size is None:
+        world_size = mesh.data_size if mesh is not None else 1
     return list(items)[rank::world_size]
 
 

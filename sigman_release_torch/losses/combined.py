@@ -69,15 +69,17 @@ class VAELoss:
         return loss, logs
 
     def discriminator(self, outputs: Dict[str, torch.Tensor],
-                           global_step: int
+                           global_step: int, disc=None
                            ) -> Tuple[Optional[torch.Tensor],
                                       Dict[str, torch.Tensor]]:
-        """Hinge loss on the detached renders; ``None`` (a zero loss with
-        zero gradients) before ``disc_start``."""
+        """Hinge loss on the detached renders through ``disc`` (default the
+        loss's discriminator; the trainer passes its DDP); ``None`` (a zero
+        loss with zero gradients) before ``disc_start``."""
         cfg = self.cfg
         if global_step < cfg.disc_start:
             return None, {"GAN_D": outputs["images_pred"].new_zeros(())}
-        logits_real = self.disc(outputs["images_gt"].detach())
-        logits_fake = self.disc(outputs["images_pred"].detach())
+        disc = self.disc if disc is None else disc
+        logits_real = disc(outputs["images_gt"].detach())
+        logits_fake = disc(outputs["images_pred"].detach())
         d_loss = cfg.disc_factor * hinge_d_loss(logits_real, logits_fake)
         return d_loss, {"GAN_D": d_loss}

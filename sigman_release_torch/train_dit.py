@@ -25,6 +25,16 @@ field, and ``--device`` (default ``cuda``; without CUDA it raises unless
   (``<workspace>/dit_state.pt``, written every ``save_ckpt_steps`` and at
   the end), the JAX package's msgpack state file, or reference weights.
 
+Data parallelism over ``data``, as in ``train_vae.py``: under ``torchrun``
+every process joins the process group its environment describes, DDP
+averages the DiT's gradients, ``batch_size`` is per process, each rank
+trains on its share of the items (the synthetic ones included) and every
+rank takes the shortest share's steps per epoch; the eval loss pools every
+rank's held-out share, and rank 0 alone samples, prints and writes files:
+
+    torchrun --nproc_per_node 4 -m sigman_release_torch.train_dit dit \
+        --synthetic_data true
+
 Models are built on the device. Metrics go to
 ``<workspace>/dit_metrics.jsonl``; every ``eval_steps`` the eval loss over
 the held-out items (up to 4, in order, the last batch kept whole) and a
@@ -39,8 +49,13 @@ import torch
 
 from sigman_release_torch.config import parse_cli
 from sigman_release_torch.data.dataset import SyntheticAvatarDataset
-from sigman_release_torch.data.loader import DataLoader
-from sigman_release_torch.device import resolve_device
+from sigman_release_torch.data.loader import DataLoader, shard_for_host
+from sigman_release_torch.parallel.mesh import (
+    initialize_multihost,
+    is_rank0,
+    make_mesh,
+)
+from sigman_release_torch.train_vae import steps_per_epoch
 from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.dit_trainer import (
     DiTTrainer,
@@ -79,8 +94,9 @@ def load_encoder(cfg, dev):
                 f"{(missing + bad)[:3]})")
         encoder.load_state_dict(sd)
         return encoder
-    print("[train_dit] WARNING: no --sapiens_path: the conditioning encoder "
-          "is seeded-random", flush=True)
+    if is_rank0():
+        print("[train_dit] WARNING: no --sapiens_path: the conditioning "
+              "encoder is seeded-random", flush=True)
     return encoder
 
 
@@ -92,19 +108,22 @@ def load_vae(cfg, dev):
     if cfg.vae_path and os.path.exists(cfg.vae_path):
         sd, _ = checkpoint.load_params_any(cfg.vae_path, vae, cfg)
         vae.load_state_dict(sd)
-    elif cfg.vae_path:
+    elif cfg.vae_path and is_rank0():
         print(f"[train_dit] WARNING: vae_path {cfg.vae_path!r} not found: "
               "training against a seeded-random frozen VAE", flush=True)
     return vae, latent_renderer
 
 
-def loaders(cfg):
-    """(training loader, eval loader): the eval set is up to 4 held-out
-    items, read in order with the last partial batch kept."""
+def loaders(cfg, mesh=None):
+    """(training loader, eval loader) over this data rank's share of the
+    items (``mesh``; all of them without): the eval set is up to 4
+    held-out items, read in order with the last partial batch kept."""
     dataset = SyntheticAvatarDataset(cfg, n_items=cfg.synthetic_items,
                                      seed=cfg.seed)
     eval_dataset = SyntheticAvatarDataset(
         cfg, n_items=min(4, cfg.synthetic_items), seed=cfg.seed + 999)
+    for d in (dataset, eval_dataset):
+        d.items = shard_for_host(d.items, mesh=mesh)
     loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.num_workers,
                         seed=cfg.seed)
     eval_loader = DataLoader(eval_dataset, cfg.batch_size, shuffle=False,
@@ -114,27 +133,31 @@ def loaders(cfg):
 
 def main(argv=None):
     cfg, device = parse_cli(argv, default_preset="dit")
-    dev = resolve_device(device)
+    dev = initialize_multihost(device)
     if not cfg.synthetic_data:
         raise SystemExit(
             "the HGS-1M reader is not ported and no HGS-1M data is in the "
             "repository: pass --synthetic_data true to train on procedural "
             "avatars")
+    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
     vae, latent_renderer = load_vae(cfg, dev)
     trainer = DiTTrainer(cfg, vae, load_encoder(cfg, dev),
-                         latent_renderer=latent_renderer, device=dev)
+                         latent_renderer=latent_renderer, device=dev,
+                         mesh=mesh)
     ckpt = os.path.join(cfg.workspace, "dit_state.pt")
     if cfg.resume:
         trainer.resume(cfg.resume)
 
-    loader, eval_loader = loaders(cfg)
-    num_steps = cfg.num_epochs * max(1, len(loader))
+    loader, eval_loader = loaders(cfg, mesh)
+    num_steps = cfg.num_epochs * steps_per_epoch(loader, mesh, cfg)
     with MetricLogger(cfg.workspace, name="dit") as logger:
         logs = trainer.fit(loader, num_steps=num_steps,
                            log_every=cfg.log_every, ckpt_path=ckpt,
                            logger=logger, eval_loader=eval_loader,
                            eval_every=cfg.eval_steps)
-    print(f"[dit] {trainer.step} steps on {dev}; last {logs}", flush=True)
+    if mesh.rank == 0:
+        print(f"[dit] {trainer.step} steps on {dev} ({mesh.world} "
+              f"rank(s)); last {logs}", flush=True)
     return trainer
 
 

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from sigman_release_torch import convert
+from sigman_release_torch.parallel.mesh import rank_seed
 
 
 class UnknownFormat(NotImplementedError):
@@ -301,6 +302,40 @@ def save_torch(path: str, state: dict):
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+
+
+def rank_state(mesh, generator: torch.Generator, *partial) -> dict:
+    """The per-rank part of a trainer's state file, gathered over the
+    ranks (every rank calls it): each rank's generator state, indexed by
+    rank, and the mesh shape. The gradient sums of a partial accumulation
+    (lists from :func:`partial_grads`, or None) are averaged over the
+    ranks in place: a run resumed on any number of ranks then all-reduces
+    the mean of every rank's sums with its own last micro-step's."""
+    for grads in partial:
+        for g in grads or ():
+            if g is not None:
+                mesh.all_reduce_(g).div_(mesh.world)
+    return {"generators": mesh.gather(generator.get_state()),
+            "mesh_shape": mesh.shape}
+
+
+def restore_generator_(generator: torch.Generator, state: dict, mesh,
+                       seed: int):
+    """This rank's generator from a state file: its own saved state when
+    the file holds one per rank of this world (a single-process file holds
+    ``generator``); else re-seeded from (``seed``, data index, step),
+    which it prints."""
+    states = state.get("generators") or [state["generator"]]
+    if len(states) == mesh.world:
+        generator.set_state(states[mesh.rank])
+        return
+    generator.manual_seed(rank_seed(seed, mesh.data_index,
+                                    int(state["step"])))
+    if mesh.rank == 0:
+        print(f"[ckpt] the state file holds {len(states)} rank(s)' "
+              f"generators, this run {mesh.world}: generators re-seeded "
+              f"from (seed, data index, step {int(state['step'])})",
+              flush=True)
 
 
 def partial_grads(params: Iterable[torch.Tensor], micro: int,

@@ -28,8 +28,15 @@ clipping + AdamW.
   averaged, clipped and applied on the k-th micro-step; the schedule counts
   applied updates.
 * Randomness: the posterior noise, timesteps, noise and dropout draws come
-  from the trainer's ``torch.Generator`` unless the caller hands them over
-  (``draws``).
+  from the trainer's ``torch.Generator`` (seeded from the seed and the
+  mesh's data index) unless the caller hands them over (``draws``).
+* Data parallelism over 'data' (``mesh``, ``parallel/mesh.py``; a process
+  group must exist): DDP wraps the DiT, its gradients views of the
+  all-reduce buckets; the frozen VAE and encoder stay bare. Accumulation
+  micro-steps before the last run under ``no_sync``. The loss log and
+  ``eval_loss`` are averaged over the ranks weighted by items;
+  ``sample_eval`` runs the bare DiT and no collective, on rank 0 in
+  ``fit``.
 * ``sample_eval`` divides the sampled latents by ``vae_scaling_factor``
   once (inside the sampler), as the single-image serving path does.
 * State files: ``save`` writes the port's own (weights, optimizer, step
@@ -38,13 +45,14 @@ clipping + AdamW.
   state, or bare parameters) and the reference's safetensors (parameters
   only), through ``training/checkpoint.py``.
 
-The JAX package's FSDP and tensor-parallel modes exist because a TPU chip
-could not hold the Adam moments; one H100 holds the ``dit`` preset's state,
-and data parallelism over several cards is not ported yet.
+The JAX package's FSDP (``spmd="fsdp"``) and its 'model' axis are a later
+slice of the port and raise ``NotImplementedError``; one H100 holds the
+``dit`` preset's state.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import os
 from typing import Dict, Optional
@@ -66,11 +74,21 @@ from sigman_release_torch.models.encoders import (
     sapiens_1b_encoder,
 )
 from sigman_release_torch.models.vae import VAEModel
+from sigman_release_torch.parallel.mesh import (
+    LATER_SLICE,
+    Mesh,
+    make_mesh,
+    prefetch_to_device,
+    rank_seed,
+    shard_batch,
+)
 from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.vae_trainer import (
     LatentRenderer,
     clip_by_global_norm_,
     init_vae_,
+    no_sync,
+    wrap_ddp,
 )
 from sigman_release_torch.utils.profiling import StepTimer
 from sigman_release_torch.utils.timing import NULL_TIMER
@@ -103,16 +121,26 @@ def build_on(device, make, generator: torch.Generator) -> nn.Module:
 class DiTTrainer:
     def __init__(self, cfg: Config, vae: nn.Module, encoder: nn.Module,
                  encoder_state: Optional[Dict[str, torch.Tensor]] = None, *,
-                 latent_renderer=None, device="cuda"):
+                 latent_renderer=None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         """``vae``: the frozen ``VAEModel`` (encoder side used here);
         ``encoder``: the frozen conditioning encoder module, with
         ``encoder_state`` loaded into it when given; ``latent_renderer``:
         an optional ``(z [B,h,w,Cl], device batch, timer=) -> outputs``
         decode + deform + render callable (a ``LatentRenderer``) for
-        ``sample_eval``. The DiT is built on ``device`` with seeded random
-        weights (``init``)."""
+        ``sample_eval``; ``mesh``: this rank's place in the data-parallel
+        layout (default ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``; 'data'
+        only). The DiT is built on ``device`` with seeded random weights
+        (``init``), under DDP when a process group exists."""
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
+        if cfg.spmd == "fsdp":
+            raise NotImplementedError(f"spmd='fsdp': {LATER_SLICE}")
+        self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        if self.mesh.view_size > 1:
+            raise ValueError("the DiT trainer shards its batch over 'data' "
+                             "only; its mesh has a 'view' axis of "
+                             f"{self.mesh.view_size}")
         self.vae = vae.to(dev).eval().requires_grad_(False)
         if encoder_state is not None:
             encoder.load_state_dict(encoder_state)
@@ -122,6 +150,7 @@ class DiTTrainer:
         self.pipeline = SamplePipeline(cfg, self.scheduler)
         self.autocast = cfg.mixed_precision == "bf16"
         self.init(cfg.seed)
+        self.ddp = wrap_ddp(self.model, dev) if self.mesh.distributed else None
         self.opt = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr,
                                      betas=(0.9, 0.95), eps=1e-8,
                                      weight_decay=1e-4,
@@ -134,11 +163,13 @@ class DiTTrainer:
 
     def init(self, seed: int):
         """Seeded DiT weights (linear/conv N(0, 1/fan_in), biases 0, norms
-        1); the trainer's generator restarts from ``seed``."""
+        1); the trainer's generator restarts from ``seed`` and the mesh's
+        data index."""
         dev = self.device
         self.model = build_on(dev, lambda: DiTModel(self.cfg),
                               torch.Generator(device=dev).manual_seed(seed + 2))
-        self.generator = torch.Generator(device=dev).manual_seed(seed + 5)
+        self.generator = torch.Generator(device=dev).manual_seed(
+            rank_seed(seed + 5, self.mesh.data_index))
 
     def lr_at(self, count: int) -> float:
         """The learning rate of the update that follows ``count`` applied
@@ -160,15 +191,19 @@ class DiTTrainer:
         device tensors."""
         keys = keys or [k for k, v in batch.items()
                         if np.issubdtype(np.asarray(v).dtype, np.number)]
-        return {k: torch.as_tensor(np.asarray(batch[k]), dtype=torch.float32,
-                                   device=self.device) for k in keys}
+        return {k: v.float() for k, v in shard_batch(
+            {k: batch[k] for k in keys}, self.mesh, self.device).items()}
 
-    def _dit(self, latent, cond, t) -> torch.Tensor:
+    def _dit(self, latent, cond, t, model: Optional[nn.Module] = None
+             ) -> torch.Tensor:
         """The DiT's f32 v prediction, under bf16 autocast with
-        ``mixed_precision="bf16"`` (the train step's and sampling's)."""
+        ``mixed_precision="bf16"`` (the train step's and sampling's);
+        ``model`` is the module called (default the bare DiT; the train
+        step passes its DDP)."""
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            return self.model(latent, cond, t).float()
+            return (self.model if model is None else model)(
+                latent, cond, t).float()
 
     @torch.no_grad()
     def encode_inputs(self, batch: Dict[str, torch.Tensor],
@@ -252,8 +287,8 @@ class DiTTrainer:
                    timer=NULL_TIMER) -> Dict[str, torch.Tensor]:
         """One (micro-)step on a device batch (raw or pre-encoded). ``draws``
         (``enc_noise``, ``t``, ``noise``, ``drop``) replaces the generator's
-        draws. Returns {"loss"}; spans "vae_encode", "cond_encode",
-        "dit_fwd_bwd", "optimizer"."""
+        draws. Returns {"loss"}, averaged over the ranks by items; spans
+        "vae_encode", "cond_encode", "dit_fwd_bwd", "optimizer"."""
         k = self.cfg.gradient_accumulation_steps
         b = next(iter(batch.values())).shape[0]
         if draws is None:
@@ -263,32 +298,45 @@ class DiTTrainer:
         t = draws["t"].to(self.device, torch.long)
         drop = draws["drop"].to(self.device, torch.bool).reshape(b, 1, 1, 1)
         cond = torch.where(drop, 0.0, cond)
-        with timer("dit_fwd_bwd"):
-            loss = self._x0_loss(self._dit, latent, cond, t,
-                                 draws["noise"].to(self.device))
+        last = (self._micro + 1) % k == 0
+        with timer("dit_fwd_bwd"), no_sync(self.ddp, last):
+            loss = self._x0_loss(
+                lambda *a: self._dit(*a, model=self.ddp), latent, cond, t,
+                draws["noise"].to(self.device))
             (loss / k).backward()
         with timer("optimizer"):
             self._apply()
         self.step += 1
-        return {"loss": loss.detach()}
+        return self.mesh.mean({"loss": loss.detach()}, weight=b)
 
     # ------------------------------------------------------------------ eval
 
     @torch.no_grad()
-    def eval_loss(self, batch: Dict[str, torch.Tensor],
+    def eval_loss(self, batch: Optional[Dict[str, torch.Tensor]],
                   noise: Optional[torch.Tensor] = None,
                   enc_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Held-out loss at t = T/2 for every item, with ``noise`` (default:
-        a draw from the trainer's generator); the DiT runs in f32."""
-        latent, cond = self.encode_inputs(batch, enc_noise)
-        b = latent.shape[0]
-        t = torch.full((b,), self.cfg.num_train_timesteps // 2,
-                       dtype=torch.long, device=self.device)
-        if noise is None:
-            noise = torch.randn(latent.shape, generator=self.generator,
-                                device=self.device)
-        return self._x0_loss(self.model, latent, cond, t,
-                             noise.to(self.device))
+        a draw from the trainer's generator); the DiT runs in f32. Averaged
+        over the ranks' items: a rank without a batch passes None and adds
+        nothing but joins the collective."""
+        stats = torch.zeros(2, dtype=torch.float64, device=self.device)
+        if batch is not None:
+            latent, cond = self.encode_inputs(batch, enc_noise)
+            b = latent.shape[0]
+            t = torch.full((b,), self.cfg.num_train_timesteps // 2,
+                           dtype=torch.long, device=self.device)
+            if noise is None:
+                noise = torch.randn(latent.shape, generator=self.generator,
+                                    device=self.device)
+            loss = self._x0_loss(self.model, latent, cond, t,
+                                 noise.to(self.device))
+            if not self.mesh.distributed:
+                return loss
+            stats = torch.stack([loss.double() * b,
+                                 torch.tensor(float(b), dtype=torch.float64,
+                                              device=self.device)])
+        total, n = self.mesh.all_reduce_(stats).unbind()
+        return (total / n).float()
 
     @torch.no_grad()
     def sample(self, cond_images: torch.Tensor,
@@ -339,26 +387,34 @@ class DiTTrainer:
             logger=None, eval_loader=None,
             eval_every: Optional[int] = None) -> Dict[str, float]:
         """Train over ``loader`` epochs until ``num_steps`` micro-steps (one
-        epoch if None): log every ``log_every``, save to ``ckpt_path`` every
-        ``save_ckpt_steps`` and at the end, and every ``eval_every`` steps
-        take the eval loss over up to 4 ``eval_loader`` batches and, with a
-        ``latent_renderer``, one ``sample_eval`` on the first (its PNG goes
-        to ``<workspace>/dit_sample_<step>.png``). Returns the last logs."""
+        epoch of the shortest rank's loader if None; every rank must be
+        given the same ``num_steps``): log every ``log_every``, save to
+        ``ckpt_path`` every ``save_ckpt_steps`` and at the end, and every
+        ``eval_every`` steps take the eval loss over up to 4 ``eval_loader``
+        batches and, with a ``latent_renderer``, one ``sample_eval`` on
+        rank 0's first (its PNG goes to
+        ``<workspace>/dit_sample_<step>.png``). Only rank 0 prints and logs.
+        Batches reach the device ``prefetch_to_device`` ahead. Returns the
+        last logs."""
         cfg = self.cfg
+        lead = self.mesh.rank == 0
+        if num_steps is None:
+            num_steps = self.step + self.mesh.min_int(len(loader))
         timer = StepTimer()
         timer.tick()
         logs: Dict[str, float] = {}
-        done = False
-        while not done:
-            for batch in loader:
-                if num_steps is not None and self.step >= num_steps:
-                    done = True
+        while self.step < num_steps:
+            host = ({k: b[k] for k in (ENCODED_KEYS if "latent" in b
+                                        else RAW_KEYS)} for b in loader)
+            taken = 0
+            for batch in prefetch_to_device(host, self.mesh, self.device):
+                if self.step >= num_steps:
                     break
-                keys = ENCODED_KEYS if "latent" in batch else RAW_KEYS
-                out = self.train_step(self.to_device(batch, keys))
+                taken += 1
+                out = self.train_step({k: v.float() for k, v in batch.items()})
                 logs = {n: float(v) for n, v in out.items()}
                 timer.tick()
-                if self.step % log_every == 0:
+                if self.step % log_every == 0 and lead:
                     summ = timer.summary()
                     print(f"[dit] step {self.step} loss {logs['loss']:.4f} "
                           f"({summ.get('step_time_mean_s', 0.0):.2f}s/step)",
@@ -370,48 +426,58 @@ class DiTTrainer:
                 if (eval_loader is not None and eval_every
                         and self.step % eval_every == 0):
                     self._evaluate(eval_loader, logger)
-            if num_steps is None:
-                done = True
+            if not taken and self.step < num_steps:
+                raise ValueError("fit: the loader yields no batch")
         if ckpt_path:
             self.save(ckpt_path)
         return logs
 
-    def _evaluate(self, eval_loader, logger=None):
+    def _evaluate(self, eval_loader, logger=None) -> Dict[str, float]:
+        """The eval loss over up to 4 eval batches (as many on every rank
+        as the longest share has; batch i pools the i-th of every rank)
+        and, on rank 0, one ``sample_eval`` on its first batch."""
+        steps = self.mesh.max_int(min(len(eval_loader), 4))
         losses, first = [], None
-        for i, eb in enumerate(eval_loader):
-            if i >= 4:
-                break
-            keys = ENCODED_KEYS if "latent" in eb else RAW_KEYS
-            losses.append(float(self.eval_loss(self.to_device(eb, keys))))
-            if first is None:
-                first = eb
+        batches = itertools.chain(itertools.islice(eval_loader, steps),
+                                  itertools.repeat(None))
+        for _, eb in zip(range(steps), batches):
+            if eb is not None:
+                keys = ENCODED_KEYS if "latent" in eb else RAW_KEYS
+                first = eb if first is None else first
+            losses.append(float(self.eval_loss(
+                None if eb is None else self.to_device(eb, keys))))
         ev: Dict[str, float] = {}
         if losses:
             ev["eval_loss"] = float(np.mean(losses))
-        if self.latent_renderer is not None and first is not None:
+        lead = self.mesh.rank == 0
+        if lead and self.latent_renderer is not None and first is not None:
             ev.update(self.sample_eval(
                 self.to_device(first), vis_path=os.path.join(
                     self.cfg.workspace, f"dit_sample_{self.step:07d}.png")))
-        if ev:
+        if ev and lead:
             print(f"[dit] eval @ {self.step}: {ev}", flush=True)
             if logger is not None:
                 logger.log(self.step, ev)
+        return ev
 
     # ----------------------------------------------------------- state file
 
     def save(self, path: str):
         """The port's own state file: DiT weights, optimizer state, step
-        counts, the gradient sums of a partial accumulation and the
-        generator (``torch.save``, written atomically)."""
-        checkpoint.save_torch(path, {
-            "model": self.model.state_dict(),
-            "optimizer": self.opt.state_dict(),
-            "step": self.step, "updates": self.updates,
-            "micro": self._micro,
-            "grads": checkpoint.partial_grads(
-                self.model.parameters(), self._micro,
-                self.cfg.gradient_accumulation_steps),
-            "generator": self.generator.get_state()})
+        counts, the gradient sums of a partial accumulation (averaged over
+        the ranks) and every rank's generator (``torch.save``, written
+        atomically). Every rank calls it; rank 0 writes and the others wait
+        for the file."""
+        grads = checkpoint.partial_grads(self.model.parameters(), self._micro,
+                                         self.cfg.gradient_accumulation_steps)
+        state = checkpoint.rank_state(self.mesh, self.generator, grads)
+        if self.mesh.rank == 0:
+            checkpoint.save_torch(path, {
+                "model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict(),
+                "step": self.step, "updates": self.updates,
+                "micro": self._micro, "grads": grads, **state})
+        self.mesh.barrier()
 
     def resume(self, path: str):
         """Restore a state file in any of the three formats: the port's own
@@ -428,7 +494,8 @@ class DiTTrainer:
             self._micro = int(state["micro"])
             checkpoint.restore_grads_(self.model.parameters(),
                                       state.get("grads"))
-            self.generator.set_state(state["generator"])
+            checkpoint.restore_generator_(self.generator, state, self.mesh,
+                                          self.cfg.seed + 5)
             return
         state = checkpoint.read_msgpack(path) if fmt == "msgpack" else None
         if state is None or "step" not in state:
@@ -493,10 +560,10 @@ def frozen_vae(cfg: Config, body_model=None, template=None, *,
 
 def synthetic_setup(cfg: Config, *, device="cuda", n_items: Optional[int] = None,
                     n_verts: int = 100_002, body_model=None, template=None,
-                    seed: int = 0):
-    """A ``DiTTrainer`` over the frozen VAE of ``frozen_vae`` (on the
-    procedural body of ``n_verts`` vertices; pass ``body_model`` and
-    ``template`` to reuse built ones) and the encoder of
+                    seed: int = 0, mesh: Optional[Mesh] = None):
+    """A ``DiTTrainer`` (on ``mesh``, as it takes one) over the frozen VAE
+    of ``frozen_vae`` (on the procedural body of ``n_verts`` vertices; pass
+    ``body_model`` and ``template`` to reuse built ones) and the encoder of
     ``make_encoder(cfg)``, all with seeded random weights and built on the
     device; a device batch of ``n_items`` (default ``cfg.batch_size``)
     ``SyntheticAvatarDataset`` items and one held-out item for the sampling
@@ -517,7 +584,7 @@ def synthetic_setup(cfg: Config, *, device="cuda", n_items: Optional[int] = None
     encoder = build_on(dev, lambda: make_encoder(cfg),
                        torch.Generator(device=dev).manual_seed(seed + 1))
     trainer = DiTTrainer(cfg, vae, encoder, latent_renderer=latent_renderer,
-                         device=dev)
+                         device=dev, mesh=mesh)
     data = SyntheticAvatarDataset(cfg, n_items=n_items + 1, seed=seed)
     items = [data[i] for i in range(n_items + 1)]
     batch = trainer.to_device(

@@ -19,7 +19,23 @@ without gradients and trains the PatchGAN on the detached renders.
   Gradients average over ``gradient_accumulation_steps`` micro-steps before
   one optimizer step.
 * Randomness: posterior noise and dropout masks come from the trainer's
-  ``torch.Generator`` unless the caller passes the noise.
+  ``torch.Generator`` unless the caller passes the noise. Its seed is
+  ``mesh.rank_seed(seed + 5, data_index)``: the view ranks of one item draw
+  the same noise and masks, so a view-sharded step is the one-process step.
+  (The JAX trainer folds every mesh axis into its key, and its view shards
+  render from different latents.)
+* Data parallelism (``mesh``, ``parallel/mesh.py``; a process group must
+  exist): one DDP wraps the VAE and logvar (the JAX trainer's pmean over
+  (params, logvar)), another the discriminator, both with their gradients
+  as views of the all-reduce buckets. The G step's forward goes through
+  the first, the D step's hinge loss through the second; the D step's
+  re-forward without gradients, the GAN_G term and the eval use the bare
+  modules. Accumulation micro-steps before the last run under
+  ``no_sync``, so the clip sees averaged gradients. Logs are averaged over
+  the ranks, as ``pmean`` averages them: ``psnr`` and ``overflow`` are
+  per-rank values averaged, not full-batch ones. The eval sums its linear
+  statistics with their counts over the ranks (the masked max by MAX)
+  before the logarithms, so unequal shares stay exact.
 * A D step before ``disc_start`` applies AdamW to zero gradients, which
   still decays the weights, as the JAX package's gated loss does.
 * Eval (``eval_step`` / ``evaluate``): the posterior mean, no dropout, no
@@ -44,6 +60,8 @@ DiT trainer's sampling eval runs.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import math
 import os
 from typing import Dict, Optional
@@ -51,6 +69,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.parallel import DistributedDataParallel as DDP
 
 from sigman_release_torch import convert
 from sigman_release_torch.body.deformer import GaussianDeformer
@@ -77,6 +96,14 @@ from sigman_release_torch.models.vae import (
     VAEModel,
     compose_rotations,
     sample_gaussian_attrs,
+)
+from sigman_release_torch.parallel.mesh import (
+    LATER_SLICE,
+    Mesh,
+    make_mesh,
+    prefetch_to_device,
+    rank_seed,
+    shard_batch,
 )
 from sigman_release_torch.renderer import GaussianRenderer
 from sigman_release_torch.training import checkpoint
@@ -165,6 +192,33 @@ class LatentRenderer:
         return self.render_attrs(attr_map.float(), batch, timer)
 
 
+def wrap_ddp(module: nn.Module, device: torch.device) -> DDP:
+    """``module`` under DDP over every rank, its gradients views of the
+    all-reduce buckets (no second copy). Every parameter must get a
+    gradient in each backward through it."""
+    return DDP(module, device_ids=[device] if device.type == "cuda" else None,
+               gradient_as_bucket_view=True)
+
+
+def no_sync(ddp: Optional[DDP], sync: bool):
+    """``ddp.no_sync()`` on an accumulation micro-step that is not the
+    last; else nothing."""
+    return ddp.no_sync() if ddp is not None and not sync \
+        else contextlib.nullcontext()
+
+
+class GeneratorModule(nn.Module):
+    """The VAE and the loss's logvar as one module, so that one DDP averages
+    both gradients (logvar is no parameter of the VAE)."""
+
+    def __init__(self, vae: VAEModel, logvar: nn.Parameter):
+        super().__init__()
+        self.vae, self.logvar = vae, logvar
+
+    def forward(self, *args, **kwargs):
+        return self.vae(*args, **kwargs)
+
+
 def init_vae_(vae: VAEModel, seed: int) -> VAEModel:
     """Seeded VAE weights: linear/conv N(0, 1/fan_in), the Gaussian heads at
     std 1e-3 (decoded offsets start near the template surface), the UV
@@ -184,9 +238,15 @@ def init_vae_(vae: VAEModel, seed: int) -> VAEModel:
 class VAETrainer:
     def __init__(self, cfg: Config, body_model: Optional[SMPLXModel] = None,
                  template: Optional[TemplateAssets] = None, *,
-                 device="cuda"):
+                 device="cuda", mesh: Optional[Mesh] = None):
+        """``mesh``: this rank's place in the data-parallel layout (default
+        ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``); with a process group
+        the trainer wraps its modules in DDP."""
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
+        if cfg.spmd == "fsdp":
+            raise NotImplementedError(f"spmd='fsdp': {LATER_SLICE}")
+        self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)
 
         # 4 layers at 512^2 like the reference; fewer for small renders
         n_layers = max(1, min(4, int(math.log2(cfg.output_size)) - 3))
@@ -213,13 +273,18 @@ class VAETrainer:
         self.step = 0
         self._micro = {"g": 0, "d": 0}
         self.init(cfg.seed)
+        self.ddp_g = self.ddp_d = None
+        if self.mesh.distributed:
+            self.ddp_g = wrap_ddp(GeneratorModule(self.vae, self.logvar), dev)
+            self.ddp_d = wrap_ddp(self.disc, dev)
 
     # ------------------------------------------------------------------ init
 
     def init(self, seed: int):
         """Seeded weights: the VAE's by ``init_vae_``, the discriminator's
         and the LPIPS trunks' linear/conv N(0, 1/fan_in), LPIPS heads 1/C,
-        logvar 0; the trainer's generator restarts from ``seed``."""
+        logvar 0; the trainer's generator restarts from ``seed`` and the
+        mesh's data index."""
         dev = self.device
 
         def gen(offset):
@@ -234,7 +299,8 @@ class VAETrainer:
             self.lpips_eval.init_heads()
         with torch.no_grad():
             self.logvar.zero_()
-        self.generator = gen(5)
+        self.generator = torch.Generator(device=dev).manual_seed(
+            rank_seed(seed + 5, self.mesh.data_index))
 
     def load_state_dicts(self, vae=None, disc=None, lpips=None, logvar=None,
                          lpips_eval=None):
@@ -250,23 +316,26 @@ class VAETrainer:
     # --------------------------------------------------------------- forward
 
     def to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(batch[k])).to(self.device)
-                for k in BATCH_KEYS}
+        """This rank's share of a loader batch on the device: the trainer's
+        keys, its block of views on a 'view' axis (``shard_batch``)."""
+        return shard_batch({k: batch[k] for k in BATCH_KEYS}, self.mesh,
+                           self.device)
 
     def forward(self, batch, noise: Optional[torch.Tensor] = None,
                 train: bool = False, timer=NULL_TIMER,
-                sample_posterior: bool = True):
+                sample_posterior: bool = True, vae: Optional[nn.Module] = None):
         """Full differentiable forward: images -> rendered views.
 
         ``batch``: device tensors (:meth:`to_device`). ``noise`` [B,h,w,Cl]
         is the posterior sample's standard normal draw (default: from the
         trainer's generator; ``sample_posterior=False`` decodes the mean);
-        ``train`` turns on the bottleneck dropout. Returns (outputs,
-        posterior); the spans "encoder", "decoder", "deform", "knn",
-        "binning" and "forward_tiles" go to ``timer``."""
+        ``train`` turns on the bottleneck dropout; ``vae`` is the module
+        called (default the bare VAE; the G step passes its DDP). Returns
+        (outputs, posterior); the spans "encoder", "decoder", "deform",
+        "knn", "binning" and "forward_tiles" go to ``timer``."""
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            attr_map, posterior = self.vae(
+            attr_map, posterior = (self.vae if vae is None else vae)(
                 batch["input"], batch["UV_inital"], noise,
                 sample_posterior=sample_posterior, train=train,
                 generator=self.generator, timer=timer)
@@ -291,22 +360,30 @@ class VAETrainer:
         opt.zero_grad(set_to_none=True)
         return True
 
+    def _last_micro(self, kind: str) -> bool:
+        """Whether the next ``kind`` micro-step is the last before an
+        update (its backward all-reduces)."""
+        return (self._micro[kind] + 1) % self.cfg.gradient_accumulation_steps \
+            == 0
+
     def train_step_g(self, batch, noise: Optional[torch.Tensor] = None,
                      timer=NULL_TIMER) -> Dict[str, torch.Tensor]:
         """One generator step on a device batch; returns detached logs
-        (L1, lpips, kl, GAN_G, loss, psnr, overflow)."""
+        (L1, lpips, kl, GAN_G, loss, psnr, overflow), averaged over the
+        ranks."""
         k = self.cfg.gradient_accumulation_steps
         self.disc.requires_grad_(False)
         try:
-            outputs, posterior = self.forward(batch, noise, train=True,
-                                              timer=timer)
-            overflow = outputs.pop("overflow")
-            with timer("loss"):
-                loss, logs = self.loss.generator(outputs, posterior,
-                                                 self.step, self.logvar)
-            with timer("backward_optimizer"):
-                (loss / k).backward()
-                self._apply("g", self.params_g, self.opt_g)
+            with no_sync(self.ddp_g, self._last_micro("g")):
+                outputs, posterior = self.forward(batch, noise, train=True,
+                                                  timer=timer, vae=self.ddp_g)
+                overflow = outputs.pop("overflow")
+                with timer("loss"):
+                    loss, logs = self.loss.generator(outputs, posterior,
+                                                     self.step, self.logvar)
+                with timer("backward_optimizer"):
+                    (loss / k).backward()
+                    self._apply("g", self.params_g, self.opt_g)
         finally:
             self.disc.requires_grad_(True)
         logs = {n: v.detach() for n, v in logs.items()}
@@ -314,7 +391,7 @@ class VAETrainer:
                             outputs["images_gt"])
         logs["overflow"] = overflow.sum().float()
         self.step += 1
-        return logs
+        return self.mesh.mean(logs)
 
     def train_step_d(self, batch, noise: Optional[torch.Tensor] = None,
                      timer=NULL_TIMER) -> Dict[str, torch.Tensor]:
@@ -323,14 +400,16 @@ class VAETrainer:
         k = self.cfg.gradient_accumulation_steps
         with torch.no_grad():
             outputs, _ = self.forward(batch, noise, train=True, timer=timer)
-        with timer("loss"):
-            loss, logs = self.loss.discriminator(outputs, self.step)
-        with timer("backward_optimizer"):
-            if loss is not None:
-                (loss / k).backward()
-            self._apply("d", list(self.disc.parameters()), self.opt_d)
+        with no_sync(self.ddp_d, self._last_micro("d")):
+            with timer("loss"):
+                loss, logs = self.loss.discriminator(outputs, self.step,
+                                                     disc=self.ddp_d)
+            with timer("backward_optimizer"):
+                if loss is not None:
+                    (loss / k).backward()
+                self._apply("d", list(self.disc.parameters()), self.opt_d)
         self.step += 1
-        return {n: v.detach() for n, v in logs.items()}
+        return self.mesh.mean({n: v.detach() for n, v in logs.items()})
 
     # ------------------------------------------------------------------ eval
 
@@ -339,25 +418,43 @@ class VAETrainer:
         """Posterior-mean eval of a device batch: (metrics, outputs).
         ``metrics``: psnr, masked_psnr (10 log10(max(masked max^2, 1e-12) /
         max(masked mse, 1e-12))), ssim over the views and lpips of the
-        full-resolution views in [-1, 1]; ``outputs``: the render's
-        images_pred / alphas_pred / images_gt / masks_gt."""
-        outputs, _ = self.forward(batch, sample_posterior=False)
-        outputs.pop("overflow")
-        pred, gt = outputs["images_pred"], outputs["images_gt"]
-        mask = outputs["masks_gt"]
-        flat_p = pred.reshape(-1, *pred.shape[2:])
-        flat_g = gt.reshape(-1, *gt.shape[2:])
-        mse = torch.mean((pred - gt) ** 2)
-        masked_mse = torch.mean((pred * mask - gt * mask) ** 2)
-        masked_max = torch.max(pred * mask)
+        full-resolution views in [-1, 1], over the batches of every rank;
+        ``outputs``: the render's images_pred / alphas_pred / images_gt /
+        masks_gt. A rank without a batch passes None (and gets None
+        outputs): it adds nothing to the sums but joins their collectives."""
+        # linear statistics: squared errors, masked squared errors, their
+        # element count, SSIM and LPIPS summed over images, the image count
+        stats = torch.zeros(6, dtype=torch.float64, device=self.device)
+        masked_max = torch.full((), -torch.inf, device=self.device)
+        outputs = None
+        if batch is not None:
+            outputs, _ = self.forward(batch, sample_posterior=False)
+            outputs.pop("overflow")
+            pred, gt = outputs["images_pred"], outputs["images_gt"]
+            mask = outputs["masks_gt"]
+            flat_p = pred.reshape(-1, *pred.shape[2:])
+            flat_g = gt.reshape(-1, *gt.shape[2:])
+            n = flat_p.shape[0]
+            stats = torch.stack([
+                torch.sum((pred - gt) ** 2),
+                torch.sum((pred * mask - gt * mask) ** 2),
+                torch.tensor(float(pred.numel()), device=self.device),
+                ssim(flat_p, flat_g) * n,
+                torch.sum(self.lpips_eval(flat_p * 2.0 - 1.0,
+                                          flat_g * 2.0 - 1.0)),
+                torch.tensor(float(n), device=self.device)]).double()
+            masked_max = torch.max(pred * mask)
+        sse, msse, count, ssim_sum, lpips_sum, n = \
+            self.mesh.all_reduce_(stats).float().unbind()
+        masked_max = self.mesh.all_reduce_(masked_max, "max")
+        mse, masked_mse = sse / count, msse / count
         metrics = {
             "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12)),
             "masked_psnr": 10.0 * torch.log10(
                 torch.clamp(masked_max ** 2, min=1e-12)
                 / torch.clamp(masked_mse, min=1e-12)),
-            "ssim": ssim(flat_p, flat_g),
-            "lpips": torch.mean(self.lpips_eval(flat_p * 2.0 - 1.0,
-                                                flat_g * 2.0 - 1.0)),
+            "ssim": ssim_sum / n,
+            "lpips": lpips_sum / n,
         }
         return metrics, outputs
 
@@ -365,19 +462,23 @@ class VAETrainer:
                  vis_path: Optional[str] = None) -> Dict[str, float]:
         """``eval_step`` over up to ``max_batches`` loader batches: the
         per-batch means as ``eval_*``, and the first batch's GT | pred PNG
-        at ``vis_path``."""
+        at ``vis_path`` (rank 0). Every rank takes as many eval steps as
+        the longest share has batches; a rank whose share is done passes
+        None, so batch i pools the i-th batch of every rank."""
+        steps = self.mesh.max_int(min(len(eval_loader), max_batches))
         sums: Dict[str, list] = {}
         first = None
-        for i, batch in enumerate(eval_loader):
-            if i >= max_batches:
-                break
-            metrics, outputs = self.eval_step(self.to_device(batch))
+        batches = itertools.chain(itertools.islice(eval_loader, steps),
+                                  itertools.repeat(None))
+        for _, batch in zip(range(steps), batches):
+            metrics, outputs = self.eval_step(
+                None if batch is None else self.to_device(batch))
             for k, v in metrics.items():
                 sums.setdefault(k, []).append(float(v))
-            if first is None:
+            if first is None and outputs is not None:
                 first = {k: outputs[k].float().cpu().numpy()
                          for k in ("images_pred", "images_gt")}
-        if vis_path and first is not None:
+        if vis_path and first is not None and self.mesh.rank == 0:
             from sigman_release_torch.utils.visualize import save_visualization
 
             save_visualization(first, vis_path)
@@ -390,31 +491,37 @@ class VAETrainer:
             logger=None, eval_loader=None,
             eval_every: Optional[int] = None) -> Dict[str, float]:
         """Alternate G and D steps by step parity once ``disc_start`` is
-        reached, over ``loader`` epochs until ``num_steps`` (one epoch if
-        None): log every ``log_every`` steps, save to ``ckpt_path`` every
-        ``save_ckpt_steps`` and at the end, and every ``eval_every`` steps
-        ``evaluate`` on ``eval_loader`` (PNG at
+        reached, over ``loader`` epochs until ``num_steps`` (one epoch of
+        the shortest rank's loader if None; every rank must be given the
+        same ``num_steps``): log every ``log_every`` steps, save to
+        ``ckpt_path`` every ``save_ckpt_steps`` and at the end, and every
+        ``eval_every`` steps ``evaluate`` on ``eval_loader`` (PNG at
         ``<workspace>/eval_<step>.png``), keeping the best of each metric
         (lowest lpips, highest of the others), logged as ``best_*`` at the
-        end. Returns the last step's logs as floats."""
+        end. Only rank 0 prints and logs. Batches reach the device
+        ``prefetch_to_device`` ahead. Returns the last step's logs as
+        floats."""
         cfg = self.cfg
+        lead = self.mesh.rank == 0
+        if num_steps is None:
+            num_steps = self.step + self.mesh.min_int(len(loader))
         timer = StepTimer()
         timer.tick()
         logs: Dict[str, float] = {}
         best: Dict[str, float] = {}
-        done = False
-        while not done:
-            for batch in loader:
-                if num_steps is not None and self.step >= num_steps:
-                    done = True
+        while self.step < num_steps:
+            host = ({k: b[k] for k in BATCH_KEYS} for b in loader)
+            taken = 0
+            for batch in prefetch_to_device(host, self.mesh, self.device):
+                if self.step >= num_steps:
                     break
-                batch = self.to_device(batch)
+                taken += 1
                 use_d = self.step >= cfg.disc_start and self.step % 2 == 1
                 out = (self.train_step_d(batch) if use_d
                        else self.train_step_g(batch))
                 logs = {n: float(v) for n, v in out.items()}
                 timer.tick()
-                if self.step % log_every == 0:
+                if self.step % log_every == 0 and lead:
                     summ = timer.summary()
                     print(f"[vae] step {self.step} {logs} "
                           f"({summ.get('step_time_mean_s', 0.0):.2f}s/step)",
@@ -430,14 +537,15 @@ class VAETrainer:
                     for k, v in ev.items():
                         if k not in best or (v > best[k]) == ("lpips" not in k):
                             best[k] = v
-                    print(f"[vae] eval @ {self.step}: {ev}", flush=True)
+                    if lead:
+                        print(f"[vae] eval @ {self.step}: {ev}", flush=True)
                     if logger is not None:
                         logger.log(self.step, ev)
-            if num_steps is None:
-                done = True
+            if not taken and self.step < num_steps:
+                raise ValueError("fit: the loader yields no batch")
         if ckpt_path:
             self.save(ckpt_path)
-        if best:
+        if best and lead:
             summary = {f"best_{k}": v for k, v in best.items()}
             print(f"[vae] best eval: {summary}", flush=True)
             if logger is not None:
@@ -449,19 +557,24 @@ class VAETrainer:
     def save(self, path: str):
         """The port's own state file (``torch.save``, written atomically):
         VAE, discriminator and logvar, both AdamW states, the step and
-        micro-step counts, the gradient sums of a partial accumulation, and
-        the generator."""
+        micro-step counts, the gradient sums of a partial accumulation
+        (averaged over the ranks), and every rank's generator. Every rank
+        calls it; rank 0 writes and the others wait for the file."""
         k = self.cfg.gradient_accumulation_steps
         params_d = list(self.disc.parameters())
-        checkpoint.save_torch(path, {
-            "vae": self.vae.state_dict(), "disc": self.disc.state_dict(),
-            "logvar": self.logvar.detach(),
-            "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
-            "step": self.step, "micro": dict(self._micro),
-            "grads_g": checkpoint.partial_grads(self.params_g,
-                                                self._micro["g"], k),
-            "grads_d": checkpoint.partial_grads(params_d, self._micro["d"], k),
-            "generator": self.generator.get_state()})
+        grads_g = checkpoint.partial_grads(self.params_g, self._micro["g"], k)
+        grads_d = checkpoint.partial_grads(params_d, self._micro["d"], k)
+        state = checkpoint.rank_state(self.mesh, self.generator, grads_g,
+                                      grads_d)
+        if self.mesh.rank == 0:
+            checkpoint.save_torch(path, {
+                "vae": self.vae.state_dict(), "disc": self.disc.state_dict(),
+                "logvar": self.logvar.detach(),
+                "opt_g": self.opt_g.state_dict(),
+                "opt_d": self.opt_d.state_dict(),
+                "step": self.step, "micro": dict(self._micro),
+                "grads_g": grads_g, "grads_d": grads_d, **state})
+        self.mesh.barrier()
 
     def resume(self, path: str):
         """Restore a state file in any of the three formats: the port's own
@@ -491,7 +604,8 @@ class VAETrainer:
         self._micro = {kind: int(n) for kind, n in state["micro"].items()}
         checkpoint.restore_grads_(self.params_g, state["grads_g"])
         checkpoint.restore_grads_(self.disc.parameters(), state["grads_d"])
-        self.generator.set_state(state["generator"])
+        checkpoint.restore_generator_(self.generator, state, self.mesh,
+                                      self.cfg.seed + 5)
 
     def _resume_msgpack(self, state):
         """A full train state of the JAX package's VAE trainer: ``params``,
@@ -531,9 +645,11 @@ class VAETrainer:
 
 def synthetic_setup(cfg: Config, *, device="cuda", n_verts: int = 100_002,
                     body_model: Optional[SMPLXModel] = None,
-                    template: Optional[TemplateAssets] = None, seed: int = 0):
+                    template: Optional[TemplateAssets] = None, seed: int = 0,
+                    mesh: Optional[Mesh] = None):
     """A trainer on the procedural body (``n_verts`` vertices, one Gaussian
-    per face; pass ``body_model`` and ``template`` to reuse built ones) and
+    per face; pass ``body_model`` and ``template`` to reuse built ones; its
+    ``mesh`` as ``VAETrainer`` takes it) and
     one ``SyntheticAvatarDataset`` item as a device batch of 1 — the
     training set-up of ``chip_smoke.py`` and ``training/profile_step.py``.
     Returns (trainer, batch)."""
@@ -546,7 +662,7 @@ def synthetic_setup(cfg: Config, *, device="cuda", n_verts: int = 100_002,
     if template is None:
         template = synthetic_template(body_model)
     trainer = VAETrainer(cfg, body_model=body_model, template=template,
-                         device=dev)
+                         device=dev, mesh=mesh)
     item = SyntheticAvatarDataset(cfg, n_items=1, seed=seed)[0]
     batch = trainer.to_device({k: v[None] for k, v in item.items()
                                if k != "item"})

@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (K1_TOL, K2_TOL, SMALL_GRAD_TOL, SMALL_LOSS_TOL,
-                        _pair_rows, cull_cases, grad_tiles, hand_streams,
-                        k1_diff, k2_diff, small_dit_step_diff,
-                        small_train_step_diff)
+from chip_smoke import (DDP_LOSS_TOL, K1_TOL, K2_TOL, SMALL_GRAD_TOL,
+                        SMALL_LOSS_TOL, WORLD1_TOL, _pair_rows, cull_cases,
+                        grad_tiles, hand_streams, k1_diff, k2_diff,
+                        small_dit_step_diff, small_train_step_diff)
 from sigman_release_torch.ops.rasterizer import backward_tiles as k2
 from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 from sigman_release_torch.ops.rasterizer import (
@@ -227,3 +227,66 @@ def test_dit_train_step_cuda_matches_cpu(cuda_device):
     1e-3 relative L2."""
     loss_rel, grad_rel = small_dit_step_diff(cuda_device)
     assert loss_rel <= SMALL_LOSS_TOL and grad_rel <= SMALL_GRAD_TOL
+
+
+def test_ddp_at_world_size_one_matches_the_bare_steps(cuda_device, tmp_path):
+    """A ``test_tiny`` VAE trainer under DDP over NCCL at world size 1 takes
+    a G step and a D step (the GAN gate open) as a bare trainer does on the
+    same weights, item and noise, held as ``chip_smoke.py`` phase 13 holds
+    ``vae_b``: the G loss and the new weights within ``WORLD1_TOL`` plus
+    twice what a second bare run differs by (the backward is not
+    deterministic on the card), the D loss, which follows an update, within
+    ``DDP_LOSS_TOL``."""
+    import torch.distributed as dist
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.parallel.cases import ONE
+    from sigman_release_torch.parallel.mesh import make_mesh
+    from sigman_release_torch.training.vae_trainer import VAETrainer
+
+    cfg = PRESETS["test_tiny"].replace(disc_start=1, gradient_clip=1e4)
+    item = SyntheticAvatarDataset(cfg, n_items=1)[0]
+    raw = {k: v[None] for k, v in item.items() if k != "item"}
+    noise = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(1, cfg.uv_query_size, cfg.uv_query_size,
+              cfg.latent_channels)).astype(np.float32)).to(cuda_device)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        runs = []
+        for mesh in (ONE, ONE, make_mesh()):
+            t = VAETrainer(cfg, device=cuda_device, mesh=mesh)
+            assert (t.ddp_g is not None) == mesh.distributed
+            b = t.to_device(raw)
+            losses = [t.train_step_g(b, noise)["loss"].item(),
+                      t.train_step_d(b, noise)["GAN_D"].item()]
+            runs.append((np.array(losses), torch.cat([
+                p.detach().flatten()
+                for p in [*t.params_g, *t.disc.parameters()]]).double()))
+    finally:
+        dist.destroy_process_group()
+    (bare_l, bare_w), (again_l, again_w), (ddp_l, ddp_w) = runs
+    spread = np.abs(again_l - bare_l) / np.abs(bare_l)
+    rel = np.abs(ddp_l - bare_l) / np.abs(bare_l)
+    assert rel[0] <= WORLD1_TOL + 2 * spread[0]
+    assert rel[1] <= DDP_LOSS_TOL
+    w_spread = ((again_w - bare_w).norm() / bare_w.norm()).item()
+    assert ((ddp_w - bare_w).norm() / bare_w.norm()).item() \
+        <= WORLD1_TOL + 2 * w_spread
+
+
+def test_prefetch_to_device_on_the_card(cuda_device):
+    """Pinned host copies on a side stream: the batches arrive in order, on
+    the card, equal to the host arrays."""
+    from sigman_release_torch.parallel.cases import ONE
+    from sigman_release_torch.parallel.mesh import prefetch_to_device
+
+    batches = [{"x": np.full((2, 3, 64, 64), i, np.float32),
+                "item": [f"i{i}"]} for i in range(6)]
+    out = list(prefetch_to_device(iter(batches), ONE, cuda_device))
+    torch.cuda.synchronize()
+    assert len(out) == 6
+    for i, b in enumerate(out):
+        assert set(b) == {"x"} and b["x"].device.type == "cuda"
+        assert torch.equal(b["x"].cpu(), torch.from_numpy(batches[i]["x"]))
