@@ -82,6 +82,22 @@ Phases (any failure exits non-zero before the final line):
              1 x view 2 (5 of the 10 views on each rank, dropout on: both
              ranks draw the same masks) and the ``test_tiny`` DiT at data
              2 (two steps, 4 items, the eval loss over 3).
+14. data      — last: the HGS-1M reader and the evaluation entry points.
+             The decoder (``data/csrc/loader.cpp``: libjpeg, else nvJPEG;
+             PNG on zlib) built with g++ and held against the committed
+             libjpeg decode of a 1024^2 JPEG fixture (exactly, or within
+             ``NVJPEG_MAX_LEVELS`` on nvJPEG); 3 item directories of the
+             reference's layout (90 views at 1024^2) written under
+             ``build/smoke_hgs/``; decode ms per view, the ms of one
+             ``vae_b`` item and the loader's items/s; ``train_vae.main``
+             at ``vae_b`` over the 2 training items with the eval over the
+             held-out one, ``train_dit.main`` at ``test_tiny`` (one step),
+             ``test_vae.main`` resuming train_vae's state, ``inference.main``
+             at the ``dit`` preset (``avatar.ply``) and ``--eval``, then
+             ``render_free`` of the PLY's Gaussians at 512^2 over 4 views
+             with a seeded upstream gradient: K1 and K2 against their plain
+             versions on its streams, with their bounds. Each path's K1 /
+             K2 launches are counted from 0.
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -174,14 +190,18 @@ SMALL_RESUME_TOL = 1e-6
 WORLD1_TOL = 1e-6
 # two gloo ranks sharing the card against one process on the whole batch:
 # loss relative, the gradient at each clip and the update (new - old
-# weights) relative L2, each within its limit or twice what a second
-# one-process run differs by, whichever is larger. The two runs differ in
-# how the batch is split, and in the rounding of a backward that is not
-# deterministic; Adam's first update is near lr sign(g), so a gradient that
-# is zero but for rounding (a key norm's bias before the softmax) moves its
-# weights by +-lr at random in every run.
+# weights) relative L2, each within its limit or twice the most that
+# DDP_REPEATS more one-process runs differ by, whichever is larger. The two
+# runs differ in how the batch is split, and in the rounding of a backward
+# that is not deterministic; Adam's first update is near lr sign(g), so a
+# gradient that is zero but for rounding (a key norm's bias before the
+# softmax) moves its weights by +-lr at random in every run. That spread
+# itself varies from run to run (a second vae_b run's gradient at the
+# second clip differed by 5.8e-4 in one run and 3.7e-3 in another, on the
+# same card), so one more run alone is no measure of it.
 DDP_LOSS_TOL = 1e-3
 DDP_GRAD_TOL = 5e-3
+DDP_REPEATS = 3
 DDP_TIMEOUT = 600               # seconds for the two ranks of one layout
 DDP_EVAL_TOL = 1e-3             # eval metrics, relative
 EVAL_ITEMS = 2
@@ -196,7 +216,10 @@ G_STEPS = 3
 
 
 def fail(msg: str):
+    """Name the fault on both streams (a caller may keep only one) and exit
+    with 1."""
     print(f"FAIL: {msg}", flush=True)
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -384,6 +407,44 @@ def hold_k1(pairs, tile_start, tile_count, kw):
                       k1_bytes(n_pairs, tile_start.numel()))
     return {"plain": plain, "err": err, "ms": ms, "plain_ms": plain_ms,
             "work": work, "n_pairs": n_pairs, "new": new, "old": old}
+
+
+def hold_k2(args, kw):
+    """K2 against its plain version on one backward's inputs (``args``: the
+    stream, its segments, K1's tiles, the upstream gradients): the kernel's
+    output, max |kernel - plain| and its per-column relative, the kernel's
+    ms with the wrapper's zero fill (mean of 20), the plain version's ms
+    (one call), its per-class evaluation counts, the rows with a gradient,
+    and both bounds (``bounds``)."""
+    import torch
+
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+
+    pairs, tile_start, tile_count = args[:3]
+    out = k2.backward_tiles(*args, **kw)
+    work = {}
+    t0 = time.perf_counter()
+    ref = k2.backward_tiles_plain(*args, work=work, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err, rel = k2_diff(out, ref)
+    del ref
+    ms = cuda_ms(lambda: k2.backward_tiles(*args, **kw), reps=20)
+    n_pairs, n_tiles = int(tile_count.sum()), tile_start.numel()
+    # rows the kernel must write: those with a nonzero gradient
+    n_written = int((out[:, :10] != 0).any(dim=1).sum())
+    # the function's own traffic: live pair rows read once, the 10 gradient
+    # columns of the rows with a nonzero gradient written once, forward rows
+    # 0-3, 5 and gradient rows 0-4 of the non-empty tiles (an empty tile
+    # needs none) and the segment arrays read once. The wrapper's zero fill
+    # of the whole [budget, 16] output is not the kernel's work: it is
+    # printed beside the bound, not in it.
+    n_bytes = ((n_pairs + n_written) * K1_ROW_BYTES
+               + int((tile_count > 0).sum()) * 10 * 1024 * 4 + 8 * n_tiles)
+    new, old = bounds(work, K2_WORK, K2_STAGE_OPS, n_pairs, n_bytes)
+    return {"out": out, "err": err, "rel": rel, "ms": ms,
+            "plain_ms": plain_ms, "work": work, "n_pairs": n_pairs,
+            "n_written": n_written, "new": new, "old": old}
 
 
 def k1_diff(out, ref):
@@ -652,8 +713,18 @@ def main():
     dit = dit_phases(dev, body, template, clock)
     ckpt = ckpt_phase(dev, body, template, clock)
     ddp = ddp_phase(dev, body, template, clock)
+    data = data_phase(dev, body, template, clock, train["g_step_ms"])
     clock.report()
 
+    # phase 14's paths, each counted from 0
+    data_k1 = {"data_train_vae": data["k1_train"],
+               "data_train_dit": data["k1_dit"],
+               "data_test_vae": data["k1_test_vae"],
+               "data_inference": data["k1_inference"],
+               "data_inference_eval": data["k1_inference_eval"],
+               "data_render_free": data["k1_free"]}
+    data_k2 = {"data_train_vae": data["k2_train"],
+               "data_render_free": data["k2_free"]}
     kernels = [{
         "name": "forward_tiles",
         "route": "cuda",
@@ -661,13 +732,13 @@ def main():
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
         "launches": (launches + train["k1_launches"] + dit["k1_launches"]
                      + ckpt["k1_resume"] + ckpt["k1_eval"]
-                     + ddp["forward_tiles"]),
+                     + ddp["forward_tiles"] + sum(data_k1.values())),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
                              "dit_train": dit["k1_launches"],
                              "vae_resume": ckpt["k1_resume"],
                              "vae_eval": ckpt["k1_eval"],
-                             "ddp": ddp["forward_tiles"]},
+                             "ddp": ddp["forward_tiles"], **data_k1},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -688,17 +759,24 @@ def main():
                      "bound_ms": ckpt["k1_bound"],
                      "bound_ms_without_cull": ckpt["k1_bound_old"],
                      "max_abs_err": ckpt["k1_err"]},
+        "render_free": {"ms": data["k1"]["ms"],
+                        "plain_ms": data["k1"]["plain_ms"],
+                        "bound_ms": data["k1"]["bound_ms"],
+                        "bound_ms_without_cull":
+                            data["k1"]["bound_ms_without_cull"],
+                        "max_abs_err": data["k1"]["err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
         "launches": (train["k2_launches"] + ckpt["k2_resume"]
-                     + ddp["backward_tiles"]),
+                     + ddp["backward_tiles"] + sum(data_k2.values())),
         "launches_by_path": {"serve": 0, "train": train["k2_launches"],
                              "dit_train": 0,
                              "vae_resume": ckpt["k2_resume"],
-                             "vae_eval": 0, "ddp": ddp["backward_tiles"]},
+                             "vae_eval": 0, "ddp": ddp["backward_tiles"],
+                             **data_k2},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -709,6 +787,13 @@ def main():
         "bound_by": train["k2_by"],
         "bound_ms_without_cull": train["k2_bound_old"],
         "library_ms": None,
+        "render_free": {"ms": data["k2"]["ms"],
+                        "plain_ms": data["k2"]["plain_ms"],
+                        "bound_ms": data["k2"]["bound_ms"],
+                        "bound_ms_without_cull":
+                            data["k2"]["bound_ms_without_cull"],
+                        "max_abs_err": data["k2"]["err"],
+                        "max_col_rel_err": data["k2"]["rel"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -887,15 +972,10 @@ def train_phases(dev, body, template, clock):
     a, kw = captured["args"], captured["kw"]
     pairs8, ts8, tc8 = a[:3]
     with torch.no_grad():
-        out = k2.backward_tiles(*a, **kw)
-        work = {}
-        t0 = time.perf_counter()
-        ref = k2.backward_tiles_plain(*a, work=work, **kw)
-        torch.cuda.synchronize()
-        k2_plain_ms = (time.perf_counter() - t0) * 1e3
-        k2_err, k2_rel = k2_diff(out, ref)
-        del ref
-        k2_ms = cuda_ms(lambda: k2.backward_tiles(*a, **kw), reps=20)
+        held2 = hold_k2(a, kw)
+        out = held2.pop("out")
+        k2_err, k2_rel = held2["err"], held2["rel"]
+        k2_ms, k2_plain_ms, work = held2["ms"], held2["plain_ms"], held2["work"]
         # the launch alone, into a buffer zeroed beforehand: every call
         # writes the same rows with the same values
         buf = torch.zeros_like(pairs8)
@@ -915,8 +995,7 @@ def train_phases(dev, body, template, clock):
         k2_kernel_ms = cuda_ms(launch_alone, reps=20)
         if not torch.equal(buf, out):
             fail("backward_tiles' launch alone differs from the wrapper's")
-        # rows the kernel must write: those with a nonzero gradient
-        n_written = int((out[:, :10] != 0).any(dim=1).sum())
+        n_written = held2["n_written"]
         del out, buf
         held = hold_k1(pairs8, ts8, tc8, kw)
     k1_err, k1_ms, k1_plain_ms = held["err"], held["ms"], held["plain_ms"]
@@ -928,22 +1007,14 @@ def train_phases(dev, body, template, clock):
     if not k1_err <= K1_TOL:
         fail(f"forward_tiles disagrees with its plain version on the "
              f"training stream: {k1_err}")
-    # the function's own traffic: live pair rows read once, the 10 gradient
-    # columns of the rows with a nonzero gradient written once, forward rows
-    # 0-3, 5 and gradient rows 0-4 of the non-empty tiles (an empty tile
-    # needs none) and the segment arrays read once. The wrapper's zero fill
-    # of the whole [budget, 16] output is not the kernel's work: it is
-    # printed beside the bound, not in it.
-    n_bytes = ((n_pairs + n_written) * K1_ROW_BYTES
-               + int((tc8 > 0).sum()) * 10 * 1024 * 4 + 8 * n_tiles)
-    fill_ms = pairs8.numel() * 4 / H100_BYTES_PER_S * 1e3
-    k2_new, k2_old = bounds(work, K2_WORK, K2_STAGE_OPS, n_pairs, n_bytes)
+    k2_new, k2_old = held2["new"], held2["old"]
     k2_bound, k2_by = k2_new[:2]
     print(f"[k2 main] stream: {n_pairs} pairs in {n_tiles} tiles (budget "
           f"{pairs8.shape[0]}), {n_written} rows with a gradient; "
           f"evaluations {work}; max |kernel - plain| {k2_err:.3e}, "
           f"per-column relative {k2_rel:.3e}")
     print(f"[k2 main] training stream: {stream_text(tc8, work)}")
+    fill_ms = pairs8.numel() * 4 / H100_BYTES_PER_S * 1e3
     print(f"[k2 main] backward_tiles {k2_ms:.4f} ms with the wrapper's zero "
           f"fill of the {pairs8.numel() * 4 / 1e6:.0f} MB output (at least "
           f"{fill_ms:.4f} ms, outside the bound), {k2_kernel_ms:.4f} ms the "
@@ -964,7 +1035,7 @@ def train_phases(dev, body, template, clock):
         fail(f"test_tiny G step on the GPU differs from the CPU: loss "
              f"{loss_rel}, gradient {grad_rel}")
     return {"k1_launches": k1_train, "k2_launches": k2_train,
-            "k2_err": k2_err, "k2_rel": k2_rel, "k2_ms": k2_ms,
+            "g_step_ms": med, "k2_err": k2_err, "k2_rel": k2_rel, "k2_ms": k2_ms,
             "k2_kernel_ms": k2_kernel_ms, "k2_plain_ms": k2_plain_ms,
             "k2_bound": k2_bound, "k2_by": k2_by,
             "k2_bound_old": k2_old[0], "k1_ms": k1_ms,
@@ -1655,14 +1726,16 @@ def ddp_phase(dev, body, template, clock):
         ("vae_b data 2 x view 1", "vae_case", dict(
             cfg=gcfg.replace(attn_dropout=0.0), mesh_shape=(2,),
             mesh_axes=("data",), items=[0, 1], steps=("g", "d"),
-            eval_items=[2, 3, 4], n_verts=N_VERTS, repeat=True)),
+            eval_items=[2, 3, 4], n_verts=N_VERTS, repeat=DDP_REPEATS)),
         ("vae_b data 1 x view 2", "vae_case", dict(
             cfg=gcfg, mesh_shape=(1, 2), mesh_axes=("data", "view"),
-            items=[0], steps=("g", "d"), n_verts=N_VERTS, repeat=True)),
+            items=[0], steps=("g", "d"), n_verts=N_VERTS,
+            repeat=DDP_REPEATS)),
         ("test_tiny DiT data 2", "dit_case", dict(
             cfg=PRESETS["test_tiny"].replace(lr_scheduler="constant",
                                              noised_condition_dropout=0.5),
-            items=[0, 1, 2, 3], steps=2, eval_items=[4, 5, 6], repeat=True)),
+            items=[0, 1, 2, 3], steps=2, eval_items=[4, 5, 6],
+            repeat=DDP_REPEATS)),
     ]
     gloo = {}
     for name, case, kwargs in layouts:
@@ -1675,8 +1748,9 @@ def ddp_phase(dev, body, template, clock):
             for k, n in r.get("launches", {}).items():
                 launches[k] += n
         print(f"[ddp] {name}: 2 gloo ranks on one card in "
-              f"{time.perf_counter() - t0:.1f} s; against one process (a "
-              f"second one-process run in brackets): loss relative "
+              f"{time.perf_counter() - t0:.1f} s; against one process (the "
+              f"most that {DDP_REPEATS} more one-process runs differ by in "
+              f"brackets): loss relative "
               f"{fmt(r0['loss_rel'])} ({fmt(floor['loss_rel'])}), gradient "
               f"at each clip relative L2 {fmt(r0['grad_rel'])} "
               f"({fmt(floor['grad_rel'])}), update relative L2 "
@@ -1695,7 +1769,8 @@ def ddp_phase(dev, body, template, clock):
         if (r0["n_clips"][0] != r0["n_clips"][1]
                 or not all(d <= max(tol, 2 * f) for d, f, tol in checks)):
             fail(f"{name}: two ranks differ from one process by more than "
-                 f"the limits and twice a second one-process run: {checks}")
+                 f"the limits and twice the most that {DDP_REPEATS} more "
+                 f"one-process runs differ by: {checks}")
         for key, ref_key in (("eval", "ref_eval"),
                              ("eval_loss", "ref_eval_loss")):
             if ref_key not in r0:
@@ -1713,6 +1788,441 @@ def ddp_phase(dev, body, template, clock):
     if launches["forward_tiles"] < 1 or launches["backward_tiles"] < 1:
         fail(f"the DDP runs launched K1 / K2 {launches} times")
     return {**launches, "vae": out_vae, "dit": out_dit}
+
+
+# ---- phase 14: real data and the evaluation entry points -------------------
+
+FIXTURE_JPEG = os.path.join(ROOT, "tests", "torch_fixtures",
+                            "hgs_view_1024.jpg")
+FIXTURE_DECODE = os.path.join(ROOT, "tests", "torch_fixtures",
+                              "hgs_view_1024_decode.npz")
+# nvJPEG against libjpeg's decode of the fixture: libjpeg's chroma
+# upsampling and colour conversion run on the host on both paths
+# (csrc/loader.cpp), so only the inverse DCT differs: one level in Y and in
+# Cb or Cr gives up to 1 + ceil(1.772) = 3 levels after the conversion;
+# and on average far less than one
+NVJPEG_MAX_LEVELS = 3
+NVJPEG_MEAN_LEVELS = 0.05
+HGS_ITEMS = 3
+HGS_VIEWS = 90
+RENDER_FREE_VIEWS = 4
+
+
+def write_hgs_items(root, n_items, rng):
+    """``n_items`` item directories of the reference's HGS-1M layout under
+    ``root`` and their ``train_list.npy``: the 1024^2 JPEG fixture as every
+    ``rgb_map/VVVV.jpg``, one PNG mask (the fixture's figure) as every
+    ``mask_map/VVVV.png`` and one PNG as ``UV/smplxuv_albedo.png`` (each
+    encoded once, then copied), an orbit rig's w2c ``R`` / ``T`` for all
+    views in ``camera_full_calibration.json`` and a seeded ``smplx.npz``."""
+    import shutil
+
+    from sigman_release_torch.data.dataset import SMPLX_KEYS
+    from sigman_release_torch.geometry.cameras import orbit_camera
+    from sigman_release_torch.utils.image_io import write_png
+
+    os.makedirs(root, exist_ok=True)
+    rgb = np.load(FIXTURE_DECODE)["rgb"]
+    mask_png, uv_png = (os.path.join(root, n) for n in ("mask.png", "uv.png"))
+    fig = (np.abs(rgb.astype(np.int16) - rgb[0, 0]).sum(-1) > 40)
+    write_png(mask_png, np.repeat((fig * 255).astype(np.uint8)[..., None], 3,
+                                  axis=-1))
+    write_png(uv_png, rgb[::-1].copy())
+    cams = {}
+    for v in range(HGS_VIEWS):
+        w2c = np.linalg.inv(orbit_camera(10.0, 360.0 * v / HGS_VIEWS, 1.5))
+        cams[f"{v:04d}"] = {"R": w2c[:3, :3].tolist(),
+                            "T": w2c[:3, 3].tolist()}
+    dims = (3, 3, 10, 63, 10, 45, 45, 3, 3, 3)
+    dirs = []
+    for i in range(n_items):
+        d = os.path.join(root, f"item{i}")
+        for sub in ("rgb_map", "mask_map", "UV"):
+            os.makedirs(os.path.join(d, sub), exist_ok=True)
+        for v in range(HGS_VIEWS):
+            shutil.copyfile(FIXTURE_JPEG,
+                            os.path.join(d, "rgb_map", f"{v:04d}.jpg"))
+            shutil.copyfile(mask_png,
+                            os.path.join(d, "mask_map", f"{v:04d}.png"))
+        shutil.copyfile(uv_png, os.path.join(d, "UV", "smplxuv_albedo.png"))
+        with open(os.path.join(d, "camera_full_calibration.json"), "w") as f:
+            json.dump(cams, f)
+        np.savez(os.path.join(d, "smplx.npz"), **{
+            k: rng.normal(0, 0.1, n).astype(np.float32)
+            for k, n in zip(SMPLX_KEYS, dims)})
+        dirs.append(d)
+    lst = os.path.join(root, "train_list.npy")
+    np.save(lst, np.array(dirs))
+    return dirs, lst, mask_png
+
+
+def orbit_rig_tensors(cfg, n_views, dev):
+    """``inference.orbit_rig`` as [1,V,4,4] tensors on ``dev``."""
+    import torch
+
+    from sigman_release_torch.inference import orbit_rig
+
+    return tuple(torch.from_numpy(a).to(dev)[None]
+                 for a in orbit_rig(cfg, n_views))
+
+
+class Counted:
+    """Zero the K1 / K2 launch counts on entry; ``n1`` / ``n2`` are the
+    launches made inside."""
+
+    def __enter__(self):
+        from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+        from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+
+        self.k1, self.k2 = k1, k2
+        k1.forward_tiles.launches = 0
+        k2.backward_tiles.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.n1 = self.k1.forward_tiles.launches
+        self.n2 = self.k2.backward_tiles.launches
+
+
+def data_phase(dev, body, template, clock, g_step_ms):
+    """Phase 14; returns the numbers the kernels line needs."""
+    import shutil
+
+    import torch
+
+    from sigman_release_torch import inference, test_vae, train_dit, train_vae
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data import native_loader
+    from sigman_release_torch.data.dataset import HGSDataset
+    from sigman_release_torch.data.loader import DataLoader
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.ops.rasterizer.render import finish
+    from sigman_release_torch.renderer import GaussianRenderer
+    from sigman_release_torch.training.vae_trainer import VAETrainer
+    from sigman_release_torch.utils import cuda_build
+    from sigman_release_torch.utils.ply import load_ply
+
+    clock.start("data")
+    root = os.path.join(ROOT, "build", "smoke_hgs")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(14)
+
+    # ---- the decoder: built here, held against the fixture's CPU decode
+    t0 = time.perf_counter()
+    try:
+        backend = native_loader.jpeg_backend()
+    finally:
+        log = cuda_build.build_logs.get(str(native_loader.SOURCE))
+        if log and log.strip():
+            print(f"[data] g++ on {os.path.relpath(native_loader.SOURCE, ROOT)}"
+                  f":\n{log.strip()}")
+    build_s = time.perf_counter() - t0
+    ref = np.load(FIXTURE_DECODE)["rgb"].astype(np.float32)
+    got = native_loader.decode_image(FIXTURE_JPEG, 1024, 1024, 3) * 255.0
+    diff = np.abs(got - ref)
+    d_max, d_mean = float(diff.max()), float(diff.mean())
+    print(f"[data] decoder ({backend} JPEG, zlib PNG) built in {build_s:.1f} "
+          f"s; the 1024^2 JPEG fixture against its committed libjpeg decode: "
+          f"max {d_max:.4f}, mean {d_mean:.5f} levels of 255", flush=True)
+    if backend == "libjpeg" and d_max > 1e-3:
+        fail(f"libjpeg decode of the fixture differs by {d_max} levels")
+    if backend == "nvjpeg" and not (d_max <= NVJPEG_MAX_LEVELS + 1e-3
+                                    and d_mean <= NVJPEG_MEAN_LEVELS):
+        fail(f"nvJPEG decode of the fixture differs by max {d_max}, mean "
+             f"{d_mean} levels from libjpeg's")
+
+    # ---- item directories of the reference's layout
+    t0 = time.perf_counter()
+    dirs, lst, mask_png = write_hgs_items(root, HGS_ITEMS, rng)
+    write_s = time.perf_counter() - t0
+    cfg = PRESETS[TRAIN_PRESET]
+    S = max(cfg.input_size, cfg.output_size)
+    decode_ms = {}
+    for n_threads in (1, 4):
+        for kind, path, ch in (("jpeg", FIXTURE_JPEG, 3),
+                               ("png", mask_png, 1)):
+            t0 = time.perf_counter()
+            native_loader.decode_batch([path] * 16, S, S, ch,
+                                       n_threads=n_threads)
+            decode_ms[(kind, n_threads)] = (time.perf_counter() - t0) * 1e3 / 16
+    zeros = 0
+    for d in dirs:
+        views = native_loader.decode_batch(
+            [os.path.join(d, "rgb_map", f"{v:04d}.jpg")
+             for v in range(HGS_VIEWS)]
+            + [os.path.join(d, "mask_map", f"{v:04d}.png")
+               for v in range(HGS_VIEWS)], 64, 64, 3, n_threads=4)
+        zeros += int((views.reshape(len(views), -1).max(axis=1) == 0).sum())
+    t0 = time.perf_counter()
+    item = HGSDataset(cfg, items=dirs, training=True)[0]
+    item_ms = (time.perf_counter() - t0) * 1e3
+    loader = DataLoader(HGSDataset(cfg, items=dirs * 3, training=True), 1,
+                        shuffle=False, num_workers=4)
+    t0 = time.perf_counter()
+    n_loaded = sum(1 for _ in loader)
+    items_per_s = n_loaded / (time.perf_counter() - t0)
+    print(f"[data] {HGS_ITEMS} items of {HGS_VIEWS} views at 1024^2 written in "
+          f"{write_s:.1f} s; views decoded to zeros: {zeros}; decode at "
+          f"{S}^2, ms per file: JPEG view {decode_ms[('jpeg', 1)]:.2f} (1 "
+          f"thread) / {decode_ms[('jpeg', 4)]:.2f} (4), PNG mask "
+          f"{decode_ms[('png', 1)]:.2f} / {decode_ms[('png', 4)]:.2f}; one "
+          f"{TRAIN_PRESET} item ({cfg.num_views} views decoded and packed) "
+          f"{item_ms:.1f} ms; the loader at num_workers 4: {items_per_s:.2f} "
+          f"items/s", flush=True)
+    if zeros:
+        fail(f"{zeros} views of the items decoded to zeros")
+    if not all(np.isfinite(v).all() for v in item.values()
+               if isinstance(v, np.ndarray)) or item["images_output"].max() <= 0:
+        fail("the decoded item is not finite or is empty")
+    del item, loader
+
+    # ---- train_vae on the items, with the eval over the held-out item
+    ws = os.path.join(root, "ws")
+
+    class TimedTrainer(VAETrainer):
+        """G and eval steps timed on the host, synchronised."""
+        times = {"g": [], "eval": []}
+
+        def _timed(self, kind, fn, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.times[kind].append((time.perf_counter() - t) * 1e3)
+            return out
+
+        def train_step_g(self, *a, **kw):
+            return self._timed("g", super().train_step_g, *a, **kw)
+
+        def eval_step(self, *a, **kw):
+            return self._timed("eval", super().eval_step, *a, **kw)
+
+    class TimedLoader(DataLoader):
+        """Records the host's wait for each batch of a training loader."""
+        waits = []
+
+        def __iter__(self):
+            it = super().__iter__()
+            while True:
+                t = time.perf_counter()
+                try:
+                    b = next(it)
+                except StopIteration:
+                    return
+                if self.shuffle:
+                    self.waits.append((time.perf_counter() - t) * 1e3)
+                yield b
+
+    saved = (train_vae.VAETrainer, train_vae.DataLoader, test_vae.VAETrainer)
+    train_vae.VAETrainer = test_vae.VAETrainer = TimedTrainer
+    train_vae.DataLoader = TimedLoader
+    try:
+        t0 = time.perf_counter()
+        with Counted() as c_train:
+            trainer = train_vae.main(
+                [TRAIN_PRESET, "--device", DEVICE, "--train_list", lst,
+                 "--synthetic_data", "false", "--workspace", ws,
+                 "--num_epochs", "1", "--eval_steps", "2", "--log_every", "1",
+                 "--num_workers", "4"], body_model=body, template=template)
+        train_s = time.perf_counter() - t0
+        steps = trainer.step
+        del trainer
+        torch.cuda.empty_cache()
+        with open(os.path.join(ws, "vae_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        ev = [r for r in rows if "eval_psnr" in r]
+        g_ms, waits = list(TimedTrainer.times["g"]), list(TimedLoader.waits)
+        wait_share = sum(waits) / (sum(waits) + sum(g_ms))
+        print(f"[data] train_vae {TRAIN_PRESET} on {HGS_ITEMS - 1} items, one "
+              f"epoch, {train_s:.1f} s (set-up, eval and the state file "
+              f"included): G steps {', '.join(f'{t:.1f}' for t in g_ms)} ms "
+              f"(phase 7's synthetic G step, median of steps 2-{G_STEPS}: "
+              f"{g_step_ms:.1f} ms); the host waited "
+              f"{', '.join(f'{t:.1f}' for t in waits)} ms for the training "
+              f"batches (the device-to-host prefetch asks for 2 at the "
+              f"start), {100 * wait_share:.2f}% of waits + G steps; the "
+              f"loader's {items_per_s:.2f} items/s against "
+              f"{1e3 / g_step_ms:.2f} G steps/s; losses {losses}; eval "
+              f"{ev[-1] if ev else None}; K1 launches {c_train.n1}, K2 "
+              f"launches {c_train.n2}", flush=True)
+        if (steps != HGS_ITEMS - 1 or len(losses) != steps
+                or not np.isfinite(losses).all() or not ev
+                or not all(np.isfinite(v) for v in ev[-1].values())):
+            fail(f"train_vae on the items: {steps} steps, losses {losses}, "
+                 f"eval {ev}")
+        if c_train.n2 != steps or c_train.n1 != steps + 1:
+            fail(f"train_vae on the items launched K1 {c_train.n1}, K2 "
+                 f"{c_train.n2} times for {steps} G steps and one eval batch")
+
+        # ---- train_dit at test_tiny on the same files, one step
+        with Counted() as c_dit:
+            dit = train_dit.main(
+                ["test_tiny", "--device", DEVICE, "--train_list", lst,
+                 "--synthetic_data", "false", "--workspace",
+                 os.path.join(root, "ws_dit"), "--batch_size", "2",
+                 "--num_epochs", "1", "--eval_steps", "1", "--log_every", "1",
+                 "--num_workers", "2", "--num_inference_steps", "2"])
+        dit_steps = dit.step
+        del dit
+        with open(os.path.join(root, "ws_dit", "dit_metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        dit_loss = [r["loss"] for r in rows if "loss" in r]
+        print(f"[data] train_dit test_tiny on the items: {dit_steps} step, "
+              f"losses {dit_loss}, eval "
+              f"{[r for r in rows if 'eval_loss' in r]}; K1 launches "
+              f"{c_dit.n1}", flush=True)
+        if dit_steps != 1 or not np.isfinite(dit_loss).all() or c_dit.n1 != 1:
+            fail(f"train_dit on the items: {dit_steps} steps, losses "
+                 f"{dit_loss}, K1 launches {c_dit.n1}")
+
+        # ---- test_vae over the held-out item, resuming train_vae's state
+        TimedTrainer.times["eval"].clear()
+        t0 = time.perf_counter()
+        with Counted() as c_test:
+            res = test_vae.main(
+                [TRAIN_PRESET, "--device", DEVICE, "--train_list", lst,
+                 "--synthetic_data", "false", "--workspace", ws, "--resume",
+                 os.path.join(ws, "vae_state.pt"), "--num_workers", "1"],
+                body_model=body, template=template)
+        test_s = time.perf_counter() - t0
+        eval_ms = list(TimedTrainer.times["eval"])
+    finally:
+        (train_vae.VAETrainer, train_vae.DataLoader,
+         test_vae.VAETrainer) = saved
+    print(f"[data] test_vae {TRAIN_PRESET} over the held-out item, resumed "
+          f"from train_vae's state: {res}; wall {test_s:.1f} s (set-up and "
+          f"resume included), eval_step {', '.join(f'{t:.1f}' for t in eval_ms)}"
+          f" ms; K1 launches {c_test.n1}", flush=True)
+    if (res["batches"] != 1 or c_test.n1 != 1
+            or not all(np.isfinite(v) for v in res.values())):
+        fail(f"test_vae over the held-out item: {res}, K1 {c_test.n1}")
+    os.remove(os.path.join(ws, "vae_state.pt"))
+    torch.cuda.empty_cache()
+
+    # ---- inference at the dit preset: avatar.ply, then --eval
+    out_dir = os.path.join(root, "inference")
+    t0 = time.perf_counter()
+    with Counted() as c_inf:
+        single = inference.main(
+            ["--preset", PRESET, "--device", DEVICE, "--out_dir", out_dir,
+             "--num_views", str(RENDER_FREE_VIEWS), "--steps", "30"],
+            body_model=body, template=template)
+    inf_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g14 = load_ply(single["ply"])
+    read_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[data] inference {PRESET} (30 CFG steps, set-up included) "
+          f"{inf_s:.1f} s: avatar.ply {single['ply_bytes']} bytes, "
+          f"{len(g14)} Gaussians, write {single['ply_write_ms']:.1f} ms, read "
+          f"{read_ms:.1f} ms; K1 launches {c_inf.n1}", flush=True)
+    if c_inf.n1 != 1 or not np.isfinite(g14).all() or len(g14) < 1:
+        fail(f"inference: K1 {c_inf.n1}, {len(g14)} Gaussians in the PLY")
+    t0 = time.perf_counter()
+    with Counted() as c_ev:
+        ev = inference.main(
+            ["--preset", PRESET, "--device", DEVICE, "--out_dir", out_dir,
+             "--eval", "--eval_batches", "1", "--train_list", lst,
+             "--synthetic_data", "false", "--steps", "30"],
+            body_model=body, template=template)
+    ev_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"[data] inference --eval {PRESET} over the held-out item "
+          f"({ev_s:.1f} s with set-up): {ev['mean']}, ms per batch "
+          f"{[round(t, 1) for t in ev['ms']]}; K1 launches {c_ev.n1}",
+          flush=True)
+    if (len(ev["batches"]) != 1 or c_ev.n1 != 1
+            or not all(np.isfinite(v) for v in ev["mean"].values())):
+        fail(f"inference --eval: {ev}, K1 {c_ev.n1}")
+
+    # ---- render_free of the PLY: K1 forward, K2 backward
+    rcfg = PRESETS[PRESET]
+    renderer = GaussianRenderer(rcfg)
+    cv, cvp = orbit_rig_tensors(rcfg, RENDER_FREE_VIEWS, dev)
+    cols = {"position": (0, 3), "opacity": (3, 4), "scale": (4, 7),
+            "rotation": (7, 11), "rgb": (11, 14)}
+    g = {k: torch.from_numpy(np.ascontiguousarray(g14[:, a:b])).to(dev)[None]
+         .requires_grad_() for k, (a, b) in cols.items()}
+    g["opacity"] = g["opacity"].detach()[..., 0].requires_grad_()
+    captured = {}
+    real_fwd, real_bwd = render_lib.forward_tiles, render_lib.backward_tiles
+
+    def capture(name, fn):
+        def wrapped(*a, **kw):
+            captured[name] = (a, kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    render_lib.forward_tiles = capture("k1", real_fwd)
+    render_lib.backward_tiles = capture("k2", real_bwd)
+    hw = rcfg.output_size
+    up = torch.from_numpy(rng.normal(size=(1, RENDER_FREE_VIEWS, 4, hw, hw))
+                          .astype(np.float32)).to(dev)
+    try:
+        with Counted() as c_free:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = renderer.render_free(g, cv, cvp)
+            loss = ((out["image"] * up[:, :, :3]).sum()
+                    + (out["alpha"] * up[:, :, 3:]).sum())
+            loss.backward()
+            torch.cuda.synchronize()
+            free_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        render_lib.forward_tiles, render_lib.backward_tiles = real_fwd, real_bwd
+    grads_ok = all(torch.isfinite(t.grad).all() for t in g.values())
+    a, kw = captured["k1"]
+    with torch.no_grad():
+        held = hold_k1(*a[:3], kw)
+        img_plain = finish(held["plain"], out["overflow"][0],
+                           RENDER_FREE_VIEWS, torch.ones(3, device=dev),
+                           renderer.raster_cfg)["image"]
+        img_err = (img_plain - out["image"][0]).abs().max().item()
+        del held["plain"]
+        held2 = hold_k2(*captured["k2"])
+        del held2["out"]
+    print(f"[data] render_free of avatar.ply: {len(g14)} Gaussians at {hw}^2 "
+          f"over {RENDER_FREE_VIEWS} orbit views, forward + backward "
+          f"{free_ms:.1f} ms, alpha max {out['alpha'].max().item():.4f}, "
+          f"overflow {out['overflow'].tolist()}; K1 launches {c_free.n1}, K2 "
+          f"launches {c_free.n2}; gradients finite {grads_ok}", flush=True)
+    print(f"[k1 free] forward_tiles on render_free's stream ({held['n_pairs']} "
+          f"pairs in {a[1].numel()} tiles) {held['ms']:.4f} ms, plain "
+          f"{held['plain_ms']:.1f} ms, max |kernel - plain| {held['err']:.3e}, "
+          f"image through the plain version {img_err:.3e}; "
+          f"{bound_text(held['ms'], held['new'], held['old'])}", flush=True)
+    print(f"[k1 free] stream: {stream_text(a[2], held['work'])}")
+    print(f"[k2 free] backward_tiles on render_free's backward "
+          f"({held2['n_written']} rows with a gradient) {held2['ms']:.4f} ms "
+          f"with the zero fill, plain {held2['plain_ms']:.1f} ms, max |kernel "
+          f"- plain| {held2['err']:.3e}, per-column relative "
+          f"{held2['rel']:.3e}; {bound_text(held2['ms'], held2['new'], held2['old'])}",
+          flush=True)
+    if c_free.n1 != 1 or c_free.n2 != 1 or not grads_ok:
+        fail(f"render_free launched K1 {c_free.n1}, K2 {c_free.n2} times; "
+             f"gradients finite {grads_ok}")
+    if not out["alpha"].max().item() > 0.5:
+        fail("render_free of the avatar shows nothing")
+    if not held["err"] <= K1_TOL or not img_err <= IMAGE_TOL:
+        fail(f"forward_tiles disagrees with its plain version on "
+             f"render_free's stream: {held['err']}, image {img_err}")
+    if not held2["rel"] <= K2_TOL:
+        fail(f"backward_tiles disagrees with its plain version on "
+             f"render_free's backward: {held2['rel']}")
+    del g, out, loss, captured, a
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"decoder": backend, "k1_train": c_train.n1, "k2_train": c_train.n2,
+            "k1_dit": c_dit.n1, "k1_test_vae": c_test.n1,
+            "k1_inference": c_inf.n1, "k1_inference_eval": c_ev.n1,
+            "k1_free": c_free.n1, "k2_free": c_free.n2,
+            "k1": {k: held[k] for k in ("err", "ms", "plain_ms")}
+            | {"bound_ms": held["new"][0],
+               "bound_ms_without_cull": held["old"][0]},
+            "k2": {k: held2[k] for k in ("err", "rel", "ms", "plain_ms")}
+            | {"bound_ms": held2["new"][0],
+               "bound_ms_without_cull": held2["old"][0]}}
 
 
 def fmt(values, spec=".3e"):

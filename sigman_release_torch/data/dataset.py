@@ -1,18 +1,28 @@
-"""Datasets: the shared item packing and the procedural synthetic avatars.
+"""Datasets: the HGS-1M directory reader and the procedural synthetic avatars.
 
 Port of the JAX package's ``data/dataset.py`` without OpenCV. An item is the
-dict the trainer consumes: input [V,9,H,W] (ImageNet-normalised RGB +
+dict the trainers consume: input [V,9,H,W] (ImageNet-normalised RGB +
 Plucker rays), UV_inital, images_output, masks_output, cam_view(_proj),
-cam_pos, smpl_params, sapiens_input. ``SyntheticAvatarDataset`` renders
-random Gaussian avatars with the dense oracle from an orbit rig, with the
-JAX package's numpy random recipe, so one seed gives the same items in both
-packages. The HGS-1M file reader (JPEG/PNG decoding) is not ported yet.
+cam_pos, smpl_params, sapiens_input, item.
+
+``HGSDataset`` reads the reference's HGS_1M item directories:
+``rgb_map/VVVV.jpg``, ``mask_map/VVVV.png``, ``UV/smplxuv_albedo.png``,
+``smplx.npz`` (transl, global_orient, betas, body_pose, expression, left and
+right hand poses, jaw, leye, reye) and ``camera_full_calibration.json``
+(per-view w2c ``R`` / ``T`` of a rig with K = 1100 f / 512 c at 1024^2),
+listed in ``cfg.train_list`` (a ``.npy`` of directory paths). Images decode
+through the port's threaded native decoder (``data/native_loader.py``).
+``SyntheticAvatarDataset`` renders random Gaussian avatars with the dense
+oracle from an orbit rig. Both draw from numpy in the JAX package's order,
+so one seed gives the same items in both packages.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Dict
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,10 +30,23 @@ import torch.nn.functional as F
 
 from sigman_release_torch.config import Config
 from sigman_release_torch.data.augment import grid_distortion, orbit_camera_jitter
-from sigman_release_torch.geometry.cameras import orbit_camera, projection_matrix
+from sigman_release_torch.data.native_loader import decode_batch
+from sigman_release_torch.geometry.cameras import (
+    intrinsics_projection_matrix,
+    orbit_camera,
+    projection_matrix,
+)
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
+
+# the reference's view order: the six front views every training item
+# starts with, and the fixed evaluation views
+TRAIN_FRONT_VIEWS = [30, 37, 45, 53, 65, 85]
+EVAL_VIEWS = [30, 37, 45, 53, 65, 85, 0, 8, 82, 60]
+SMPLX_KEYS = ("transl", "global_orient", "betas", "body_pose", "expression",
+              "left_hand_pose", "right_hand_pose", "jaw_pose", "leye_pose",
+              "reye_pose")
 
 
 def _plucker_np(c2w: np.ndarray, h: int, w: int, fovy: float) -> np.ndarray:
@@ -51,14 +74,79 @@ def _resize(img: np.ndarray, size: int) -> np.ndarray:
 
 
 class HGSDataset:
-    """HGS-1M items. Only the shared tail, ``_pack``, is ported: reading the
-    files waits until such data is in the repository."""
+    """HGS-1M items from ``items`` (directory paths), or from
+    ``cfg.train_list``: every item but each hundredth for training, each
+    hundredth (at most 2000) for eval. A training item reads the six front
+    views, then the other views in a random order (``num_views`` in all);
+    an eval item reads ``EVAL_VIEWS``. Images decode at the larger of
+    ``input_size`` and ``output_size``; a missing ``smplx.npz`` gives 179
+    zeros (the canonical pose), a view missing from the camera json the
+    identity pose, a file that fails to decode a zero frame."""
 
-    cfg: Config
-    rng: np.random.Generator
-    training: bool
-    proj: np.ndarray
+    def __init__(self, cfg: Config, items: Optional[Sequence[str]] = None,
+                 training: bool = True, seed: int = 0,
+                 decode_threads: int = 4):
+        self.cfg = cfg
+        self.training = training
+        self.decode_threads = decode_threads
+        self.rng = np.random.default_rng(seed)
+        if items is None:
+            items = [str(p) for p in np.load(cfg.train_list, allow_pickle=True)]
+            if training:
+                items = [it for i, it in enumerate(items) if i % 100 != 0]
+            else:
+                items = items[::100][:2000]
+        self.items = list(items)
+        K = np.array([[1100.0, 0, 512.0], [0, 1100.0, 512.0], [0, 0, 1.0]])
+        self.proj = intrinsics_projection_matrix(cfg.znear, cfg.zfar, K,
+                                                 1024, 1024)
 
+    def __len__(self):
+        return len(self.items)
+
+    def _view_ids(self) -> List[int]:
+        if self.training:
+            return TRAIN_FRONT_VIEWS + self.rng.permutation(89).tolist()
+        return list(EVAL_VIEWS)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        uid = self.items[idx]
+        with open(os.path.join(uid, "camera_full_calibration.json")) as f:
+            cam_json = json.load(f)
+        try:
+            sp = np.load(os.path.join(uid, "smplx.npz"), allow_pickle=True)
+            smpl_params = np.concatenate(
+                [np.asarray(sp[k], np.float32).reshape(1, -1)
+                 for k in SMPLX_KEYS], axis=-1)[0]
+        except (FileNotFoundError, KeyError):
+            smpl_params = np.zeros(179, np.float32)
+
+        vids = self._view_ids()[: cfg.num_views]
+        S = max(cfg.input_size, cfg.output_size)
+        rgb = decode_batch(
+            [os.path.join(uid, "rgb_map", f"{v:04d}.jpg") for v in vids],
+            S, S, 3, n_threads=self.decode_threads)           # [V,S,S,3]
+        mk = decode_batch(
+            [os.path.join(uid, "mask_map", f"{v:04d}.png") for v in vids],
+            S, S, 1, n_threads=self.decode_threads)
+        w2cs = []
+        for vid in vids:
+            w2c = np.eye(4, dtype=np.float32)
+            try:
+                pose = cam_json[f"{vid:04d}"]
+                w2c[:3, :3] = np.asarray(pose["R"], np.float32)
+                w2c[:3, 3] = np.asarray(pose["T"], np.float32)
+            except Exception:
+                w2c = np.eye(4, dtype=np.float32)
+            w2cs.append(w2c)
+        uv = decode_batch([os.path.join(uid, "UV", "smplxuv_albedo.png")],
+                          cfg.input_size, cfg.input_size, 3,
+                          n_threads=1)[0].transpose(2, 0, 1)
+        return self._pack(rgb.transpose(0, 3, 1, 2), mk[..., 0],
+                          np.stack(w2cs), uv, smpl_params, uid)
+
+    # the shared tail (the synthetic dataset's too)
     def _pack(self, images, masks, w2cs, uv, smpl_params, uid):
         cfg = self.cfg
         V = images.shape[0]

@@ -1,9 +1,11 @@
 """Image -> avatar inference: image + pose -> DiT sampling -> VAE decode ->
 LBS deform -> tile-rasterizer render.
 
-Port of ``scripts/test_DiT.py`` ``main()`` (single-image path). Run as::
+Port of ``scripts/test_DiT.py`` ``main()``. Run as::
 
     python -m sigman_release_torch.inference --preset dit --out_dir out/
+    python -m sigman_release_torch.inference --preset dit --eval \
+        --train_list items.npy --eval_batches 16
 
 The models carry seeded random weights (``--seed``); ``--vae_ckpt`` and
 ``--dit_ckpt`` load trained ones from any of the three state-file formats
@@ -12,7 +14,10 @@ package's msgpack state file, the reference's safetensors), and
 ``AvatarPipeline.load_state_dicts`` takes converted ones (``convert.py``).
 Without ``--image_path`` the conditioning image is a seeded random array;
 without ``--pose_path`` the body takes the canonical pose.
-Views are written as ``view_XX.png`` and ``views.npy``. Runs on CUDA unless
+Views are written as ``view_XX.png`` and ``views.npy``, the posed splats as
+``avatar.ply`` (``utils/ply.py``). ``--eval`` scores the test set instead
+(``run_eval``): the held-out HGS-1M items of ``--train_list``, or
+procedural avatars with ``--synthetic_data true``. Runs on CUDA unless
 ``--device cpu``.
 """
 
@@ -22,26 +27,19 @@ import argparse
 import json
 import math
 import os
-from typing import Dict, Optional
+import time
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sigman_release_torch.body.deformer import GaussianDeformer
-from sigman_release_torch.body.smplx import (
-    SMPLXModel,
-    load_smplx_npz,
-    parse_param_vector,
-    synthetic_body_model,
-)
-from sigman_release_torch.body.template import (
-    TemplateAssets,
-    load_template_dir,
-    synthetic_template,
-)
+from sigman_release_torch.body.smplx import SMPLXModel, parse_param_vector
+from sigman_release_torch.body.template import TemplateAssets
 from sigman_release_torch.config import PRESETS, Config
+from sigman_release_torch.data.dataset import HGSDataset, SyntheticAvatarDataset
+from sigman_release_torch.data.loader import DataLoader
 from sigman_release_torch.device import resolve_device
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
 from sigman_release_torch.diffusion.pipeline import SamplePipeline
@@ -51,6 +49,8 @@ from sigman_release_torch.geometry.cameras import (
     orbit_camera,
     projection_matrix,
 )
+from sigman_release_torch.losses.lpips import LPIPS
+from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.dit import DiTModel
 from sigman_release_torch.models.encoders import ViTFeatureEncoder
 from sigman_release_torch.models.vae import (
@@ -58,9 +58,10 @@ from sigman_release_torch.models.vae import (
     compose_rotations,
     sample_gaussian_attrs,
 )
-from sigman_release_torch.renderer import GaussianRenderer
 from sigman_release_torch.utils.image_io import load_image, write_png
+from sigman_release_torch.utils.ply import save_ply
 from sigman_release_torch.utils.timing import NULL_TIMER
+from sigman_release_torch.utils.visualize import save_visualization
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -162,7 +163,8 @@ def random_weights_(module: nn.Module, generator: torch.Generator,
 
 
 class AvatarPipeline:
-    """Encoder + DiT + VAE decoder + deformer + renderer on one device."""
+    """Encoder + DiT + VAE decoder + deformer + renderer on one device; the
+    decoder, deformer and renderer are the VAE's ``LatentRenderer``."""
 
     def __init__(self, cfg: Config, *, device="cuda", seed: int = 0,
                  body_model: Optional[SMPLXModel] = None,
@@ -187,24 +189,16 @@ class AvatarPipeline:
             self.dit = self.dit.to(torch.bfloat16)
         self.sampler = SamplePipeline(
             cfg, DDIMScheduler.from_config(cfg, device=dev))
+        # (imported here: vae_trainer imports this module's initialisers)
+        from sigman_release_torch.training.vae_trainer import LatentRenderer
 
-        if body_model is None:
-            body_model = (load_smplx_npz(cfg.smplx_model_path)
-                          if cfg.smplx_model_path else synthetic_body_model())
-        body_model = body_model.to(dev)
-        if template is None:
-            try:
-                template = load_template_dir(cfg.template_dir)
-            except (FileNotFoundError, OSError):
-                template = synthetic_template(body_model)
-        self.template = template.to(dev)
-        t = self.template
-        self.deformer = GaussianDeformer(body_model, t.init_faces,
-                                         t.init_spdir, t.init_podir,
-                                         t.init_lbsw, t.weight_mask())
-        with torch.no_grad():
-            self.deformer_state = self.deformer.initialize()
-        self.renderer = GaussianRenderer(cfg)
+        # the configured body model and template unless given, else the
+        # procedural body
+        self.latent_renderer = lr = LatentRenderer(
+            cfg, self.vae, body_model, template, device=dev)
+        self.template, self.deformer, self.renderer = (
+            lr.template, lr.deformer, lr.renderer)
+        self.deformer_state = lr.deformer_state
 
     def load_state_dicts(self, vae=None, dit=None, encoder=None):
         """Load converted weights (``convert.py``) into the models."""
@@ -225,6 +219,25 @@ class AvatarPipeline:
                     load_params_any(path, module, self.cfg)[0])
 
     @torch.no_grad()
+    def sample(self, image: torch.Tensor,
+               noise: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None,
+               steps: Optional[int] = None,
+               timer=NULL_TIMER) -> torch.Tensor:
+        """image [B,3,S,S] ImageNet-normalized -> latents [B,Cl,h,w], divided
+        by ``vae_scaling_factor`` (once, in the sampler): the conditioning
+        encode ("encoder" span) and the CFG DDIM loop ("dit_sampling") from
+        ``noise`` (default: a draw from ``generator``)."""
+        cfg = self.cfg
+        with timer("encoder"):
+            cond = self.encoder(image.to(self.device))
+        with timer("dit_sampling"):
+            return self.sampler.sample_latents(
+                self.dit, cond, generator=generator, noise=noise,
+                num_inference_steps=steps or cfg.num_inference_steps,
+                guidance_scale=cfg.guidance_scale)
+
+    @torch.no_grad()
     def __call__(self, image: torch.Tensor, smpl_vec: Optional[torch.Tensor],
                  cam_view: torch.Tensor, cam_view_proj: torch.Tensor, *,
                  noise: Optional[torch.Tensor] = None,
@@ -238,14 +251,8 @@ class AvatarPipeline:
         and transforms, and the render (image [B,V,3,H,W], alpha, depth,
         overflow).
         """
-        cfg, dev = self.cfg, self.device
-        with timer("encoder"):
-            cond = self.encoder(image.to(dev))
-        with timer("dit_sampling"):
-            latents = self.sampler.sample_latents(
-                self.dit, cond, generator=generator, noise=noise,
-                num_inference_steps=steps or cfg.num_inference_steps,
-                guidance_scale=cfg.guidance_scale)
+        dev = self.device
+        latents = self.sample(image, noise, generator, steps, timer)
         t = self.template
         with timer("decode"):
             # sample_latents already divided by vae_scaling_factor
@@ -270,7 +277,110 @@ class AvatarPipeline:
                 "gaussians": gaussians, "tfs": tfs, "render": render}
 
 
-def main(argv=None):
+def avatar_gaussians(points: np.ndarray, attrs: Dict[str, np.ndarray],
+                     b: int = 0) -> np.ndarray:
+    """The [N,14] splats of batch item ``b`` that ``avatar.ply`` holds: the
+    posed positions, opacity, |scale| * 0.01 + 0.003 (the renderer's scales
+    are relative to a KNN base; a file carries absolute ones), the identity
+    quaternion and rgb."""
+    n = points.shape[1]
+    quat = np.zeros((n, 4), np.float32)
+    quat[:, 0] = 1.0
+    return np.concatenate(
+        [points[b], attrs["opacity"][b],
+         np.abs(attrs["scale"][b]) * 0.01 + 0.003, quat, attrs["rgb"][b]],
+        axis=1)
+
+
+def seeded_lpips(device, seed: int) -> LPIPS:
+    """The LPIPS (VGG16) of the VAE trainer's loss, with its seeded random
+    weights (no pretrained LPIPS weights are in the repository)."""
+    with torch.device(device):   # default inits run on the device
+        lpips = LPIPS().to(device).requires_grad_(False)
+    random_weights_(lpips.vgg, torch.Generator(device=device).manual_seed(
+        seed + 3))
+    with torch.no_grad():
+        lpips.init_heads()
+    return lpips.eval()
+
+
+def eval_dataset(cfg: Config):
+    """The test set: the held-out HGS-1M items of ``cfg.train_list``, or
+    procedural avatars (at least 2) with ``cfg.synthetic_data``."""
+    if cfg.synthetic_data:
+        return SyntheticAvatarDataset(cfg, n_items=max(2, cfg.synthetic_items))
+    return HGSDataset(cfg, training=False)
+
+
+@torch.no_grad()
+def run_eval(pipe: AvatarPipeline, out_dir: str, eval_batches: int = 16,
+             steps: Optional[int] = None, *, lpips: Optional[LPIPS] = None,
+             noises: Optional[Sequence[torch.Tensor]] = None,
+             seed: int = 0, timer=NULL_TIMER) -> Dict[str, object]:
+    """Test-set generation metrics (the reference's ``test_DiT.py`` eval):
+    for each of the first ``eval_batches`` batches of ``eval_dataset``,
+    CFG-sample latents from ``sapiens_input`` (from ``noises[i]``, else a
+    draw seeded with ``seed + 7``), decode them through the VAE's
+    ``LatentRenderer`` (divided by ``vae_scaling_factor`` once, by the
+    sampler), render the items' own cameras and pose, and score PSNR, SSIM
+    and LPIPS (``lpips``, default ``seeded_lpips``; full resolution, [-1,
+    1]) against the ground-truth views. Writes ``eval_XXX.png`` for the
+    first 4 batches and prints each batch's metrics and the means.
+    Returns {"mean": {metric: mean}, "batches": [{metric: value}],
+    "ms": [wall ms of each batch, synchronised]}."""
+    cfg, dev = pipe.cfg, pipe.device
+    loader = DataLoader(eval_dataset(cfg), cfg.batch_size, shuffle=False,
+                        num_workers=cfg.num_workers, drop_last=False)
+    if lpips is None:
+        lpips = seeded_lpips(dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    os.makedirs(out_dir, exist_ok=True)
+    batches, wall = [], []
+    for i, batch in enumerate(loader):
+        if i >= eval_batches:
+            break
+        t0 = time.perf_counter()
+        tb = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+              for k, v in batch.items() if k != "item"}
+        lat = pipe.sample(tb["sapiens_input"],
+                          noise=None if noises is None else noises[i],
+                          generator=gen, steps=steps, timer=timer)
+        out = pipe.latent_renderer(lat.permute(0, 2, 3, 1), tb, timer=timer)
+        pred, gt = out["images_pred"], out["images_gt"]
+        fp = pred.reshape(-1, *pred.shape[2:])
+        fg = gt.reshape(-1, *gt.shape[2:])
+        vals = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(fp, fg)),
+                "lpips": float(torch.mean(lpips(fp * 2.0 - 1.0,
+                                                fg * 2.0 - 1.0)))}
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if i < 4:
+            save_visualization(
+                {k: out[k].float().cpu().numpy()
+                 for k in ("images_pred", "images_gt")},
+                os.path.join(out_dir, f"eval_{i:03d}.png"))
+        batches.append(vals)
+        print(f"[eval] batch {i}: " + "  ".join(
+            f"{k} {v:.4f}" for k, v in vals.items())
+            + f"  ({wall[-1]:.1f} ms)", flush=True)
+    mean = {k: float(np.mean([b[k] for b in batches]))
+            for k in (batches[0] if batches else ())}
+    print("[eval] mean: " + "  ".join(f"{k} {v:.4f}" for k, v in mean.items())
+          + f"  ({len(batches)} batches)", flush=True)
+    return {"mean": mean, "batches": batches, "ms": wall}
+
+
+def _flag(raw: str) -> bool:
+    return raw.lower() in ("1", "true", "yes", "on")
+
+
+def main(argv=None, *, body_model: Optional[SMPLXModel] = None,
+         template: Optional[TemplateAssets] = None):
+    """The CLI; ``body_model`` / ``template``: built ones to pose and render
+    (default: the configured assets, else the procedural body). Returns
+    ``run_eval``'s result with ``--eval``, else {"views", "ply",
+    "ply_bytes", "ply_write_ms"}."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="test_tiny", choices=sorted(PRESETS))
     ap.add_argument("--image_path", default=None,
@@ -293,12 +403,29 @@ def main(argv=None):
     ap.add_argument("--dit_ckpt", default=None,
                     help="DiT weights: a DiT trainer state (.pt), a msgpack "
                          "state file or transformer.safetensors")
+    ap.add_argument("--eval", action="store_true",
+                    help="test-set metrics instead of single-image inference")
+    ap.add_argument("--eval_batches", type=int, default=16)
+    ap.add_argument("--train_list", default=None,
+                    help="--eval: .npy of HGS-1M item directories (default: "
+                         "the preset's)")
+    ap.add_argument("--synthetic_data", type=_flag, default=None,
+                    help="--eval on procedural avatars (true / false; "
+                         "default: the preset's)")
     args = ap.parse_args(argv)
 
     cfg = PRESETS[args.preset]
+    if args.train_list is not None:
+        cfg = cfg.replace(train_list=args.train_list)
+    if args.synthetic_data is not None:
+        cfg = cfg.replace(synthetic_data=args.synthetic_data)
     dev = resolve_device(args.device)
-    pipe = AvatarPipeline(cfg, device=dev, seed=args.seed)
+    pipe = AvatarPipeline(cfg, device=dev, seed=args.seed,
+                          body_model=body_model, template=template)
     pipe.load_checkpoints(vae=args.vae_ckpt, dit=args.dit_ckpt)
+    if args.eval:
+        return run_eval(pipe, args.out_dir, args.eval_batches, args.steps,
+                        seed=args.seed)
 
     if args.image_path:
         img = load_image(args.image_path)
@@ -323,8 +450,19 @@ def main(argv=None):
     for v in range(imgs.shape[0]):
         write_png(os.path.join(args.out_dir, f"view_{v:02d}.png"),
                   (imgs[v].transpose(1, 2, 0) * 255).astype(np.uint8))
-    print(f"wrote {imgs.shape[0]} views to {args.out_dir} "
-          f"(overflow {int(out['render']['overflow'].sum())})")
+    t0 = time.perf_counter()
+    g14 = avatar_gaussians(
+        out["gaussians"]["position"].float().cpu().numpy(),
+        {k: out["attrs"][k].float().cpu().numpy()
+         for k in ("opacity", "scale", "rgb")})
+    ply = os.path.join(args.out_dir, "avatar.ply")
+    n = save_ply(g14, ply)
+    write_ms = (time.perf_counter() - t0) * 1e3
+    print(f"wrote {imgs.shape[0]} views and avatar.ply ({n} Gaussians, "
+          f"{os.path.getsize(ply)} bytes, {write_ms:.1f} ms) to "
+          f"{args.out_dir} (overflow {int(out['render']['overflow'].sum())})")
+    return {"views": imgs, "ply": ply, "ply_bytes": os.path.getsize(ply),
+            "ply_write_ms": write_ms}
 
 
 if __name__ == "__main__":

@@ -8,7 +8,12 @@
 * white background default, [B,V] camera batches, f32 geometry whatever the
   network's dtype,
 * compositing through the tile rasterizer (``ops/rasterizer``), whose
-  ``forward_tiles`` is the CUDA kernel for CUDA tensors.
+  ``forward_tiles`` (K1) and ``backward_tiles`` (K2) are the CUDA kernels
+  for CUDA tensors.
+
+``render_free`` renders the free Gaussians of the 14-channel head
+(``models/render_head.py``) or of a PLY file (``utils/ply.py``): absolute
+scales and quaternion rotations, no KNN base scale.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import Dict, Optional
 import torch
 
 from sigman_release_torch.config import Config
+from sigman_release_torch.models.render_head import RenderHead
 from sigman_release_torch.ops.knn import mean_knn_dist2
 from sigman_release_torch.ops.rasterizer import (
     RasterizeConfig,
@@ -83,3 +89,25 @@ class GaussianRenderer:
                          cam_view.to(torch.float32),
                          cam_view_proj.to(torch.float32), bg_color,
                          self.raster_cfg, timer)
+
+    def render_free(
+        self,
+        gaussians: Dict[str, torch.Tensor],
+        cam_view: torch.Tensor,        # [B,V,4,4]
+        cam_view_proj: torch.Tensor,   # [B,V,4,4]
+        bg_color: Optional[torch.Tensor] = None,
+        timer=NULL_TIMER,
+    ) -> Dict[str, torch.Tensor]:
+        """Render free Gaussians: position [B,N,3], opacity [B,N], absolute
+        scale [B,N,3], unit quaternion ``rotation`` [B,N,4], rgb [B,N,3].
+        Differentiable in all five; returns what :meth:`render` does."""
+        f32 = torch.float32
+        pos = gaussians["position"].to(f32)
+        if bg_color is None:
+            bg_color = torch.ones(3, dtype=f32, device=pos.device)
+        cov3d = RenderHead.covariances(
+            {k: gaussians[k].to(f32) for k in ("scale", "rotation")})
+        return rasterize(pos, cov3d, gaussians["rgb"].to(f32),
+                         gaussians["opacity"].to(f32), cam_view.to(f32),
+                         cam_view_proj.to(f32), bg_color, self.raster_cfg,
+                         timer)

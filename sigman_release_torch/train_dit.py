@@ -1,13 +1,15 @@
 """DiT training entry point (port of the repository's ``train_DiT.py``).
 
-    python -m sigman_release_torch.train_dit dit --synthetic_data true
+    python -m sigman_release_torch.train_dit dit --train_list items.npy
     python -m sigman_release_torch.train_dit test_tiny --device cpu \
         --num_epochs 1 --synthetic_items 2 --workspace /tmp/ws
 
 A preset (default ``dit``), then ``--flag value`` overrides of any ``Config``
 field, and ``--device`` (default ``cuda``; without CUDA it raises unless
-``--device cpu``). Until HGS-1M data is in the repository the trainer needs
-``--synthetic_data true``: it trains on procedural avatars.
+``--device cpu``). The trainer reads the HGS-1M item directories of
+``--train_list`` (every item but each hundredth for training, each
+hundredth for the eval), or procedural avatars with ``--synthetic_data
+true``.
 
 * The frozen VAE starts seeded-random; ``--vae_path`` loads a trained one
   from any of the three state-file formats (``training/checkpoint.py``):
@@ -28,12 +30,12 @@ field, and ``--device`` (default ``cuda``; without CUDA it raises unless
 Data parallelism over ``data``, as in ``train_vae.py``: under ``torchrun``
 every process joins the process group its environment describes, DDP
 averages the DiT's gradients, ``batch_size`` is per process, each rank
-trains on its share of the items (the synthetic ones included) and every
+trains on its share of the items and every
 rank takes the shortest share's steps per epoch; the eval loss pools every
 rank's held-out share, and rank 0 alone samples, prints and writes files:
 
     torchrun --nproc_per_node 4 -m sigman_release_torch.train_dit dit \
-        --synthetic_data true
+        --train_list items.npy
 
 Models are built on the device. Metrics go to
 ``<workspace>/dit_metrics.jsonl``; every ``eval_steps`` the eval loss over
@@ -48,14 +50,14 @@ import os
 import torch
 
 from sigman_release_torch.config import parse_cli
-from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+from sigman_release_torch.data.dataset import HGSDataset, SyntheticAvatarDataset
 from sigman_release_torch.data.loader import DataLoader, shard_for_host
 from sigman_release_torch.parallel.mesh import (
     initialize_multihost,
     is_rank0,
     make_mesh,
 )
-from sigman_release_torch.train_vae import steps_per_epoch
+from sigman_release_torch.train_vae import check_train_list, steps_per_epoch
 from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.dit_trainer import (
     DiTTrainer,
@@ -100,11 +102,12 @@ def load_encoder(cfg, dev):
     return encoder
 
 
-def load_vae(cfg, dev):
-    """The frozen VAE and its ``LatentRenderer``: seeded-random, with the
+def load_vae(cfg, dev, body_model=None, template=None):
+    """The frozen VAE and its ``LatentRenderer`` (on ``body_model`` /
+    ``template``, default the configured ones): seeded-random, with the
     weights of ``cfg.vae_path`` when that file exists (any of the three
     formats)."""
-    vae, latent_renderer = frozen_vae(cfg, device=dev)
+    vae, latent_renderer = frozen_vae(cfg, body_model, template, device=dev)
     if cfg.vae_path and os.path.exists(cfg.vae_path):
         sd, _ = checkpoint.load_params_any(cfg.vae_path, vae, cfg)
         vae.load_state_dict(sd)
@@ -116,12 +119,19 @@ def load_vae(cfg, dev):
 
 def loaders(cfg, mesh=None):
     """(training loader, eval loader) over this data rank's share of the
-    items (``mesh``; all of them without): the eval set is up to 4
-    held-out items, read in order with the last partial batch kept."""
-    dataset = SyntheticAvatarDataset(cfg, n_items=cfg.synthetic_items,
-                                     seed=cfg.seed)
-    eval_dataset = SyntheticAvatarDataset(
-        cfg, n_items=min(4, cfg.synthetic_items), seed=cfg.seed + 999)
+    items (``mesh``; all of them without): the HGS-1M items of
+    ``cfg.train_list`` and its held-out ones, or with ``cfg.synthetic_data``
+    procedural avatars and up to 4 held-out ones. The eval set is read in
+    order with the last partial batch kept."""
+    if cfg.synthetic_data:
+        dataset = SyntheticAvatarDataset(cfg, n_items=cfg.synthetic_items,
+                                         seed=cfg.seed)
+        eval_dataset = SyntheticAvatarDataset(
+            cfg, n_items=min(4, cfg.synthetic_items), seed=cfg.seed + 999)
+    else:
+        check_train_list(cfg)
+        dataset = HGSDataset(cfg, training=True)
+        eval_dataset = HGSDataset(cfg, training=False)
     for d in (dataset, eval_dataset):
         d.items = shard_for_host(d.items, mesh=mesh)
     loader = DataLoader(dataset, cfg.batch_size, num_workers=cfg.num_workers,
@@ -131,24 +141,20 @@ def loaders(cfg, mesh=None):
     return loader, eval_loader
 
 
-def main(argv=None):
+def main(argv=None, *, body_model=None, template=None):
+    """``body_model`` / ``template``: built ones for the sampling eval's
+    renderer (default: the configured assets, else the procedural body)."""
     cfg, device = parse_cli(argv, default_preset="dit")
     dev = initialize_multihost(device)
-    if not cfg.synthetic_data:
-        raise SystemExit(
-            "the HGS-1M reader is not ported and no HGS-1M data is in the "
-            "repository: pass --synthetic_data true to train on procedural "
-            "avatars")
     mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
-    vae, latent_renderer = load_vae(cfg, dev)
+    loader, eval_loader = loaders(cfg, mesh)
+    vae, latent_renderer = load_vae(cfg, dev, body_model, template)
     trainer = DiTTrainer(cfg, vae, load_encoder(cfg, dev),
                          latent_renderer=latent_renderer, device=dev,
                          mesh=mesh)
     ckpt = os.path.join(cfg.workspace, "dit_state.pt")
     if cfg.resume:
         trainer.resume(cfg.resume)
-
-    loader, eval_loader = loaders(cfg, mesh)
     num_steps = cfg.num_epochs * steps_per_epoch(loader, mesh, cfg)
     with MetricLogger(cfg.workspace, name="dit") as logger:
         logs = trainer.fit(loader, num_steps=num_steps,

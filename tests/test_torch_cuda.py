@@ -290,3 +290,82 @@ def test_prefetch_to_device_on_the_card(cuda_device):
     for i, b in enumerate(out):
         assert set(b) == {"x"} and b["x"].device.type == "cuda"
         assert torch.equal(b["x"].cpu(), torch.from_numpy(batches[i]["x"]))
+
+
+def test_decoder_fixture_on_the_card(cuda_device):
+    """The port's decoder as it builds on the card's machine (nvJPEG where
+    libjpeg is missing) against the committed libjpeg decode of the 1024^2
+    JPEG fixture: exactly on libjpeg, within ``NVJPEG_MAX_LEVELS`` (mean
+    ``NVJPEG_MEAN_LEVELS``) on nvJPEG; a missing file is a zero frame and
+    threads change nothing."""
+    from chip_smoke import (FIXTURE_DECODE, FIXTURE_JPEG, NVJPEG_MAX_LEVELS,
+                            NVJPEG_MEAN_LEVELS)
+    from sigman_release_torch.data import native_loader
+
+    ref = np.load(FIXTURE_DECODE)["rgb"].astype(np.float32)
+    got = native_loader.decode_image(FIXTURE_JPEG, 1024, 1024, 3) * 255.0
+    diff = np.abs(got - ref)
+    if native_loader.jpeg_backend() == "libjpeg":
+        assert diff.max() <= 1e-3
+    else:
+        assert diff.max() <= NVJPEG_MAX_LEVELS + 1e-3
+        assert diff.mean() <= NVJPEG_MEAN_LEVELS
+    one, four = (native_loader.decode_batch(
+        [FIXTURE_JPEG] * 6 + ["/nonexistent.jpg"], 256, 256, 3, n_threads=n)
+        for n in (1, 4))
+    np.testing.assert_array_equal(one, four)
+    assert (one[-1] == 0).all() and one[0].max() > 0.1
+
+
+def test_render_free_kernels_match_plain(cuda_device, monkeypatch):
+    """``render_free`` of 2,000 free Gaussians at 128^2 over 3 views with a
+    seeded upstream gradient on the card: K1 once and K2 once, each held
+    against its plain version on the stream it was given (``K1_TOL``;
+    ``K2_TOL`` of each column's max); the gradients finite."""
+    from chip_smoke import orbit_rig_tensors
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.renderer import GaussianRenderer
+
+    rng = np.random.default_rng(5)
+    n, views, hw = 2000, 3, 128
+    q = rng.normal(size=(1, n, 4))
+    g = {"position": rng.normal(0, 0.3, (1, n, 3)),
+         "opacity": rng.uniform(0.2, 0.95, (1, n)),
+         "scale": rng.uniform(0.005, 0.03, (1, n, 3)),
+         "rotation": q / np.linalg.norm(q, axis=-1, keepdims=True),
+         "rgb": rng.uniform(0, 1, (1, n, 3))}
+    g = {k: torch.tensor(v, dtype=torch.float32, device=cuda_device,
+                         requires_grad=True) for k, v in g.items()}
+    cfg = PRESETS["test_tiny"].replace(output_size=hw)
+    cv, cvp = orbit_rig_tensors(cfg, views, cuda_device)
+    seen = {}
+    real_f, real_b = render_lib.forward_tiles, render_lib.backward_tiles
+
+    def fwd(*a, **kw):
+        seen["k1"] = (a, kw)
+        return real_f(*a, **kw)
+
+    def bwd(*a, **kw):
+        seen["k2"] = (a, kw)
+        return real_b(*a, **kw)
+
+    monkeypatch.setattr(render_lib, "forward_tiles", fwd)
+    monkeypatch.setattr(render_lib, "backward_tiles", bwd)
+    before = (k1.forward_tiles.launches, k2.backward_tiles.launches)
+    out = GaussianRenderer(cfg).render_free(g, cv, cvp)
+    up = torch.from_numpy(rng.normal(size=(1, views, 4, hw, hw)).astype(
+        np.float32)).to(cuda_device)
+    ((out["image"] * up[:, :, :3]).sum()
+     + (out["alpha"] * up[:, :, 3:]).sum()).backward()
+    torch.cuda.synchronize()
+    assert (k1.forward_tiles.launches - before[0],
+            k2.backward_tiles.launches - before[1]) == (1, 1)
+    assert out["alpha"].max().item() > 0.5
+    assert all(torch.isfinite(t.grad).all() for t in g.values())
+    a, kw = seen["k1"]
+    assert k1_diff(k1.forward_tiles(*a, **kw),
+                   k1.forward_tiles_plain(*a, **kw)) <= K1_TOL
+    a, kw = seen["k2"]
+    assert k2_diff(k2.backward_tiles(*a, **kw),
+                   k2.backward_tiles_plain(*a, **kw))[1] <= K2_TOL
