@@ -98,6 +98,24 @@ Phases (any failure exits non-zero before the final line):
              with a seeded upstream gradient: K1 and K2 against their plain
              versions on its streams, with their bounds. Each path's K1 /
              K2 launches are counted from 0.
+15. template  — last: the template tools, the converters and the VAE's
+             remat. ``extract_template`` on a procedural SMPL-X npz of
+             ``TEMPLATE_VERTS`` vertices (``save_smplx_npz``) and a seeded
+             segmentation JSON of the 9 ``SUBDIVIDE_REGIONS`` (99,940
+             Gaussians); a ``vae_b`` trainer whose ``template_dir`` is the
+             result takes one G step (K1 and K2 launched once, held against
+             their plain versions on its stream, with their bounds);
+             ``inverse_skin_points`` of the template's LBS-posed anchors on
+             the deformer's weight voxel; the G step under "block" (three
+             runs: the gradients' spread), "conv_enc" and "conv" on the
+             same weights, noise and draws (first loss, gradient at the
+             clip, median ms of 2 steps, peak GiB); ``bake_uv`` over 2
+             items of phase 14's layout (18 views at 1024^2, a 1024^2
+             atlas) read back by ``HGSDataset``; ``convert_reference_ckpt``
+             of ``vae_b`` reference safetensors and ``convert_sapiens`` of
+             an mmpretrain state dict at Sapiens-1B geometry, each read
+             back by ``load_params_any`` bit for bit. Files under
+             ``build/smoke_template/``, removed at the end.
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -714,6 +732,7 @@ def main():
     ckpt = ckpt_phase(dev, body, template, clock)
     ddp = ddp_phase(dev, body, template, clock)
     data = data_phase(dev, body, template, clock, train["g_step_ms"])
+    tmpl = template_phase(dev, clock)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -725,6 +744,11 @@ def main():
                "data_render_free": data["k1_free"]}
     data_k2 = {"data_train_vae": data["k2_train"],
                "data_render_free": data["k2_free"]}
+    # phase 15's paths: the G step on the extracted template, the remat runs
+    tmpl_k1 = {"template": tmpl["k1_template"],
+               "template_remat": tmpl["k1_remat"]}
+    tmpl_k2 = {"template": tmpl["k2_template"],
+               "template_remat": tmpl["k2_remat"]}
     kernels = [{
         "name": "forward_tiles",
         "route": "cuda",
@@ -732,13 +756,15 @@ def main():
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_forward.py:339",
         "launches": (launches + train["k1_launches"] + dit["k1_launches"]
                      + ckpt["k1_resume"] + ckpt["k1_eval"]
-                     + ddp["forward_tiles"] + sum(data_k1.values())),
+                     + ddp["forward_tiles"] + sum(data_k1.values())
+                     + sum(tmpl_k1.values())),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
                              "dit_train": dit["k1_launches"],
                              "vae_resume": ckpt["k1_resume"],
                              "vae_eval": ckpt["k1_eval"],
-                             "ddp": ddp["forward_tiles"], **data_k1},
+                             "ddp": ddp["forward_tiles"], **data_k1,
+                             **tmpl_k1},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -765,18 +791,25 @@ def main():
                         "bound_ms_without_cull":
                             data["k1"]["bound_ms_without_cull"],
                         "max_abs_err": data["k1"]["err"]},
+        "template": {"ms": tmpl["k1"]["ms"],
+                     "plain_ms": tmpl["k1"]["plain_ms"],
+                     "bound_ms": tmpl["k1"]["bound_ms"],
+                     "bound_ms_without_cull":
+                         tmpl["k1"]["bound_ms_without_cull"],
+                     "max_abs_err": tmpl["k1"]["err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
         "source": "sigman_release_torch/ops/rasterizer/csrc/backward_tiles.cu",
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
         "launches": (train["k2_launches"] + ckpt["k2_resume"]
-                     + ddp["backward_tiles"] + sum(data_k2.values())),
+                     + ddp["backward_tiles"] + sum(data_k2.values())
+                     + sum(tmpl_k2.values())),
         "launches_by_path": {"serve": 0, "train": train["k2_launches"],
                              "dit_train": 0,
                              "vae_resume": ckpt["k2_resume"],
                              "vae_eval": 0, "ddp": ddp["backward_tiles"],
-                             **data_k2},
+                             **data_k2, **tmpl_k2},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -794,6 +827,13 @@ def main():
                             data["k2"]["bound_ms_without_cull"],
                         "max_abs_err": data["k2"]["err"],
                         "max_col_rel_err": data["k2"]["rel"]},
+        "template": {"ms": tmpl["k2"]["ms"],
+                     "plain_ms": tmpl["k2"]["plain_ms"],
+                     "bound_ms": tmpl["k2"]["bound_ms"],
+                     "bound_ms_without_cull":
+                         tmpl["k2"]["bound_ms_without_cull"],
+                     "max_abs_err": tmpl["k2"]["err"],
+                     "max_col_rel_err": tmpl["k2"]["rel"]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2217,6 +2257,423 @@ def data_phase(dev, body, template, clock, g_step_ms):
             "k1_dit": c_dit.n1, "k1_test_vae": c_test.n1,
             "k1_inference": c_inf.n1, "k1_inference_eval": c_ev.n1,
             "k1_free": c_free.n1, "k2_free": c_free.n2,
+            "k1": {k: held[k] for k in ("err", "ms", "plain_ms")}
+            | {"bound_ms": held["new"][0],
+               "bound_ms_without_cull": held["old"][0]},
+            "k2": {k: held2[k] for k in ("err", "rel", "ms", "plain_ms")}
+            | {"bound_ms": held2["new"][0],
+               "bound_ms_without_cull": held2["old"][0]}}
+
+
+# the procedural body of phase 15: 40,000 faces, 9 segmentation regions of
+# 2,222 vertices, half the faces split once -> 99,940 Gaussians
+TEMPLATE_VERTS = 40_002
+TEMPLATE_REGION = 2_222
+TEMPLATE_GAUSSIANS = (90_000, 110_000)
+BAKE_ITEMS = 2
+RASTER_CHECK_FACES = 2_000      # the card's rasterizer against the CPU's
+SNARF_RECOVER_DIST = 1e-3       # a valid init "recovers" its anchor within
+REMAT_LOSS_TOL = 1e-5           # first loss under each policy, relative
+REMAT_REPEATS = 2               # second "block" runs: the gradient floor
+REMAT_STEPS = 3                 # one tapped step, then two timed
+SAPIENS_WIDTH, SAPIENS_DEPTH, SAPIENS_GRID = 1536, 40, 64
+
+
+def sapiens_source(gen, dev):
+    """An mmpretrain-named VisionTransformer state dict (under ``backbone.``,
+    with a class token) at ``SAPIENS_*`` geometry, seeded on ``dev``, on the
+    host."""
+    import torch
+
+    D = SAPIENS_WIDTH
+    shapes = {"backbone.patch_embed.projection.weight": (D, 3, 16, 16),
+              "backbone.patch_embed.projection.bias": (D,),
+              "backbone.pos_embed": (1, SAPIENS_GRID ** 2 + 1, D),
+              "backbone.cls_token": (1, 1, D),
+              "backbone.ln1.weight": (D,), "backbone.ln1.bias": (D,)}
+    for i in range(SAPIENS_DEPTH):
+        p = f"backbone.layers.{i}."
+        for name, shape in (("ln1", (D,)), ("ln2", (D,)),
+                            ("attn.qkv", (3 * D, D)), ("attn.proj", (D, D)),
+                            ("ffn.layers.0.0", (4 * D, D)),
+                            ("ffn.layers.1", (D, 4 * D))):
+            shapes[p + name + ".weight"] = shape
+            shapes[p + name + ".bias"] = (shape[0],)
+    return {k: torch.randn(s, generator=gen, device=dev).cpu()
+            for k, s in shapes.items()}
+
+
+def sapiens_expected(src, name):
+    """The source tensor (or slice) that the encoder's ``name`` must hold."""
+    D = SAPIENS_WIDTH
+    b = "backbone."
+    if name == "pos_embed":
+        return src[b + "pos_embed"][:, 1:]
+    if name.startswith("patch_proj."):
+        return src[b + "patch_embed.projection." + name.split(".")[-1]]
+    if name.startswith("norm_out."):
+        return src[b + "ln1." + name.split(".")[-1]]
+    _, i, *mid, leaf = name.split(".")
+    layer = f"{b}layers.{i}."
+    part = ".".join(mid)
+    if part in ("attn.query", "attn.key", "attn.value"):
+        k = ("attn.query", "attn.key", "attn.value").index(part)
+        return src[layer + "attn.qkv." + leaf][k * D:(k + 1) * D]
+    return src[layer + {"ln1": "ln1", "ln2": "ln2", "attn.out": "attn.proj",
+                        "ffn1": "ffn.layers.0.0",
+                        "ffn2": "ffn.layers.1"}[part] + "." + leaf]
+
+
+def template_phase(dev, clock):
+    """Phase 15; returns the numbers the kernels line needs."""
+    import shutil
+
+    import torch
+
+    from sigman_release_torch import (bake_uv, convert, convert_reference_ckpt,
+                                      convert_sapiens, extract_template)
+    from sigman_release_torch.body.lbs import skinning
+    from sigman_release_torch.body.smplx import (canonical_params,
+                                                 parse_param_vector,
+                                                 save_smplx_npz,
+                                                 smplx_forward,
+                                                 synthetic_body_model)
+    from sigman_release_torch.body.snarf import inverse_skin_points
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import (HGSDataset,
+                                                   SyntheticAvatarDataset)
+    from sigman_release_torch.data.uv_baking import rasterize_mesh
+    from sigman_release_torch.geometry.cameras import orbit_camera
+    from sigman_release_torch.models.encoders import sapiens_1b_encoder
+    from sigman_release_torch.models.vae import VAEModel, set_remat_policy
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.training import checkpoint, vae_trainer
+
+    clock.start("template")
+    root = os.path.join(ROOT, "build", "smoke_template")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(15)
+
+    # ---- extract a template from a procedural SMPL-X npz and segmentation
+    body = synthetic_body_model(n_verts=TEMPLATE_VERTS, seed=15, device=dev)
+    npz, seg_path = (os.path.join(root, n) for n in ("smplx.npz", "seg.json"))
+    save_smplx_npz(body, npz)
+    slot = TEMPLATE_VERTS // len(extract_template.SUBDIVIDE_REGIONS)
+    seg = {name: list(range(s, s + TEMPLATE_REGION)) for name, s in zip(
+        extract_template.SUBDIVIDE_REGIONS,
+        (i * slot + int(rng.integers(0, slot - TEMPLATE_REGION))
+         for i in range(len(extract_template.SUBDIVIDE_REGIONS))))}
+    with open(seg_path, "w") as f:
+        json.dump(seg, f)
+    tdir = os.path.join(root, "template")
+    t0 = time.perf_counter()
+    extracted = extract_template.main(["--smplx", npz, "--seg", seg_path,
+                                       "--out", tdir, "--device", DEVICE])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    n_faces = len(body.faces)
+    n_split = int(extracted.face_mask.sum()) // 4
+    n_g = extracted.num_gaussians
+    print(f"[template] extract_template on a {TEMPLATE_VERTS}-vertex "
+          f"procedural SMPL-X npz ({n_faces} faces) and 9 regions of "
+          f"{TEMPLATE_REGION} vertices: {n_g} Gaussians, {n_split} faces "
+          f"({100 * n_split / n_faces:.2f}%) subdivided, {extract_s:.2f} s",
+          flush=True)
+    if not TEMPLATE_GAUSSIANS[0] <= n_g <= TEMPLATE_GAUSSIANS[1]:
+        fail(f"the extracted template has {n_g} Gaussians, not "
+             f"{TEMPLATE_GAUSSIANS}")
+
+    # ---- one vae_b G step on it: K1 and K2 on its stream
+    cfg = PRESETS[TRAIN_PRESET].replace(template_dir=tdir)
+    t0 = time.perf_counter()
+    trainer = vae_trainer.VAETrainer(cfg, body_model=body, device=dev)
+    item = SyntheticAvatarDataset(cfg, n_items=1, seed=0)[0]
+    batch = trainer.to_device({k: v[None] for k, v in item.items()
+                               if k != "item"})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lr = trainer.latent_renderer
+    if lr.template.num_gaussians != n_g:
+        fail(f"the trainer renders {lr.template.num_gaussians} Gaussians, "
+             f"not the {n_g} of {tdir}")
+    captured = {}
+    real_fwd, real_bwd = render_lib.forward_tiles, render_lib.backward_tiles
+
+    def capture(name, fn):
+        def wrapped(*a, **kw):
+            captured[name] = (a, kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    render_lib.forward_tiles = capture("k1", real_fwd)
+    render_lib.backward_tiles = capture("k2", real_bwd)
+    q, c = cfg.uv_query_size, cfg.latent_channels
+    noise = torch.from_numpy(rng.normal(size=(1, q, q, c)).astype(
+        np.float32)).to(dev)
+    snap = [p.detach().clone() for p in trainer.params_g]
+    gen_state, step0 = trainer.generator.get_state(), trainer.step
+    try:
+        with Counted() as c_step:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logs = trainer.train_step_g(batch, noise)
+            torch.cuda.synchronize()
+            g_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        render_lib.forward_tiles, render_lib.backward_tiles = real_fwd, real_bwd
+    logs = {k: float(v) for k, v in logs.items()}
+    print(f"[template] vae_b trainer on {tdir} (set-up {setup_s:.1f} s): "
+          f"first G step {g_ms:.1f} ms, K1 launches {c_step.n1}, K2 "
+          f"launches {c_step.n2}, logs {logs}", flush=True)
+    if c_step.n1 != 1 or c_step.n2 != 1:
+        fail(f"the G step on the extracted template launched K1 "
+             f"{c_step.n1}, K2 {c_step.n2} times, not once each")
+    if not all(np.isfinite(v) for v in logs.values()):
+        fail(f"non-finite G step on the extracted template: {logs}")
+    a, kw = captured["k1"]
+    with torch.no_grad():
+        held = hold_k1(*a[:3], kw)
+        del held["plain"]
+        held2 = hold_k2(*captured["k2"])
+        del held2["out"]
+    print(f"[k1 template] stream: {stream_text(a[2], held['work'])}")
+    print(f"[k1 template] forward_tiles ({held['n_pairs']} pairs in "
+          f"{a[1].numel()} tiles) {held['ms']:.4f} ms, plain "
+          f"{held['plain_ms']:.1f} ms, max |kernel - plain| "
+          f"{held['err']:.3e}; {bound_text(held['ms'], held['new'], held['old'])}",
+          flush=True)
+    print(f"[k2 template] backward_tiles ({held2['n_written']} rows with a "
+          f"gradient) {held2['ms']:.4f} ms with the zero fill, plain "
+          f"{held2['plain_ms']:.1f} ms, max |kernel - plain| "
+          f"{held2['err']:.3e}, per-column relative {held2['rel']:.3e}; "
+          f"{bound_text(held2['ms'], held2['new'], held2['old'])}", flush=True)
+    if not held["err"] <= K1_TOL:
+        fail(f"forward_tiles disagrees with its plain version on the "
+             f"extracted template's stream: {held['err']}")
+    if not held2["rel"] <= K2_TOL:
+        fail(f"backward_tiles disagrees with its plain version on the "
+             f"extracted template's stream: {held2['rel']}")
+    del captured, a
+
+    # ---- SNARF: inverse skinning of the posed anchors
+    st, deformer = lr.deformer_state, lr.deformer
+    with torch.no_grad():
+        posed = deformer.prepare(parse_param_vector(
+            torch.from_numpy(seeded_pose(rng)).to(dev)))
+        tfs = posed.tfs_A[0] @ st.tfs_inv_t[0]        # canonical -> posed
+        xc = lr.template.init_pcd
+        w = deformer.query_weights(st, xc[None])
+        xd = skinning(xc[None], w, tfs[None])[0][0]
+        d, h, wd = st.lbs_voxel.shape[1:]
+        gz, gy, gx = torch.meshgrid(
+            *(torch.linspace(-1, 1, n, device=dev) for n in (d, h, wd)),
+            indexing="ij")
+        grid = (torch.stack([gx, gy, gz / st.ratio], dim=-1).reshape(-1, 3)
+                * st.scale + st.offset.reshape(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_c, valid = inverse_skin_points(xd, st.lbs_voxel, tfs, grid,
+                                         st.offset, st.scale, st.ratio)
+        torch.cuda.synchronize()
+        snarf_ms = (time.perf_counter() - t0) * 1e3
+        near = (x_c - xc[:, None]).norm(dim=-1) < SNARF_RECOVER_DIST
+        recovered = float((near & valid).any(dim=1).float().mean())
+        any_valid = float(valid.any(dim=1).float().mean())
+        finite = bool(torch.isfinite(x_c[valid]).all())
+    print(f"[snarf] inverse_skin_points of {xd.shape[0]} posed anchors x "
+          f"{valid.shape[1]} inits x 10 iterations on the deformer's "
+          f"{tuple(st.lbs_voxel.shape)} weight voxel: {snarf_ms:.1f} ms; "
+          f"a valid init for {100 * any_valid:.2f}% of the points, the "
+          f"anchor recovered within {SNARF_RECOVER_DIST} for "
+          f"{100 * recovered:.2f}%", flush=True)
+    if not finite or recovered <= 0:
+        fail(f"SNARF: finite {finite}, recovered share {recovered}")
+    del x_c, valid, near, grid
+
+    # ---- remat policies on the same trainer, weights and noise
+    runs = {"block again": []}
+    with Counted() as c_remat:
+        for name in ["block", *["block again"] * REMAT_REPEATS, "conv_enc",
+                     "conv"]:
+            policy = name.split()[0]
+            set_remat_policy(trainer.vae, policy)
+            with torch.no_grad():
+                for p, s in zip(trainer.params_g, snap):
+                    p.copy_(s)
+            trainer.generator.set_state(gen_state)
+            trainer.step = step0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            against = runs["block"]["clips"] if "block" in runs else None
+            with ClipTap(vae_trainer, against) as tap:
+                loss = float(trainer.train_step_g(batch, noise)["loss"])
+            ms = []
+            for _ in range(REMAT_STEPS - 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train_step_g(batch, noise)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            run = {"loss": loss, "ms": statistics.median(ms),
+                   "peak": torch.cuda.max_memory_allocated() / 2**30}
+            if against is None:
+                run["clips"] = tap.host
+            else:
+                run["grad_rel"] = tap.rel[0]
+            if name == "block again":
+                runs[name].append(run)
+            else:
+                runs[name] = run
+    set_remat_policy(trainer.vae, cfg.remat_policy)
+    block = runs["block"]
+    spread = max(r["grad_rel"] for r in runs["block again"])
+    for name in ("block", "conv_enc", "conv"):
+        r = runs[name]
+        print(f"[remat] {name}: G step median of {REMAT_STEPS - 1} "
+              f"{r['ms']:.1f} ms, peak {r['peak']:.2f} GiB, first loss "
+              f"{r['loss']!r}" + ("" if name == "block" else
+                                  f", gradient against block relative L2 "
+                                  f"{r['grad_rel']:.3e}"), flush=True)
+    print(f"[remat] second block runs: gradient relative L2 "
+          f"{fmt([r['grad_rel'] for r in runs['block again']])}, ms "
+          f"{fmt([r['ms'] for r in runs['block again']], '.1f')}; K1 / K2 "
+          f"launches {c_remat.n1} / {c_remat.n2}", flush=True)
+    n_steps = (3 + REMAT_REPEATS) * REMAT_STEPS
+    if c_remat.n1 != n_steps or c_remat.n2 != n_steps:
+        fail(f"the remat steps launched K1 {c_remat.n1}, K2 {c_remat.n2} "
+             f"times, not {n_steps}")
+    for name in ("conv_enc", "conv", "block again"):
+        for r in (runs[name] if name == "block again" else [runs[name]]):
+            rel = abs(r["loss"] - block["loss"]) / max(abs(block["loss"]),
+                                                       1e-30)
+            if not rel <= REMAT_LOSS_TOL:
+                fail(f"remat {name}: first loss {r['loss']} against block's "
+                     f"{block['loss']} (relative {rel})")
+    for name in ("conv_enc", "conv"):
+        if not runs[name]["grad_rel"] <= 2 * spread:
+            fail(f"remat {name}: gradient {runs[name]['grad_rel']} against "
+                 f"block, more than twice a second block run's {spread}")
+    del trainer, batch, snap, runs, block
+    torch.cuda.empty_cache()
+
+    # ---- the bake's rasterizer: the card against the CPU on one view
+    with torch.no_grad():
+        verts = smplx_forward(body, canonical_params(1, device=dev)) \
+            .verts[0].cpu().numpy()
+    sub = np.asarray(body.faces)[:RASTER_CHECK_FACES]
+    w2c = np.linalg.inv(orbit_camera(10.0, 120.0, 1.5))
+    r_dev = rasterize_mesh(verts, sub, w2c, bake_uv.K_BAKE, 1024, 1024,
+                           device=dev)
+    r_cpu = rasterize_mesh(verts, sub, w2c, bake_uv.K_BAKE, 1024, 1024)
+    same_ids = torch.equal(r_dev["face_id"].cpu(), r_cpu["face_id"])
+    r_diff = max((r_dev[k].cpu() - r_cpu[k]).abs().max().item()
+                 for k in ("bary", "depth", "viewcos"))
+    print(f"[bake] rasterize_mesh of {RASTER_CHECK_FACES} faces at 1024^2, "
+          f"card against CPU: face ids equal {same_ids} "
+          f"({float((r_cpu['face_id'] >= 0).float().mean()):.4f} covered), "
+          f"barycentrics / depth / view cosine max diff {r_diff:.3e}",
+          flush=True)
+    if not same_ids or not r_diff == 0:
+        fail(f"rasterize_mesh on the card differs from the CPU: ids equal "
+             f"{same_ids}, values {r_diff}")
+
+    # ---- UV bake of 2 items of the reference's layout
+    items_root = os.path.join(root, "items")
+    dirs, lst, _ = write_hgs_items(items_root, BAKE_ITEMS, rng)
+    bake_ms = []
+    real_bake = bake_uv.bake_item
+
+    def timed_bake(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_bake(*a, **kw)
+        torch.cuda.synchronize()
+        bake_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    cwd = os.getcwd()
+    bake_uv.bake_item = timed_bake
+    os.chdir(root)              # wrong_id.npy, if any, stays under build/
+    try:
+        res = bake_uv.main(["--items", lst, "--smplx", npz, "--device",
+                            DEVICE])
+    finally:
+        os.chdir(cwd)
+        bake_uv.bake_item = real_bake
+    covered = [s["covered"] for _, _, s in res["baked"]]
+    direct = [s["direct"] for _, _, s in res["baked"]]
+    back = HGSDataset(PRESETS[TRAIN_PRESET], items=dirs, training=False)[0]
+    uv_back = back["UV_inital"]
+    print(f"[bake] bake_uv over {BAKE_ITEMS} items (18 views at 1024^2 each, "
+          f"a 1024^2 atlas, the {n_faces}-face mesh): ms per item "
+          f"{fmt(bake_ms, '.1f')}; texels covered {fmt(direct, '.4f')}, "
+          f"after the mip fill {fmt(covered, '.4f')}; read back by "
+          f"HGSDataset: UV_inital {uv_back.shape}, mean "
+          f"{float(uv_back.mean()):.4f}, std {float(uv_back.std()):.4f}",
+          flush=True)
+    if res["wrong"] or len(res["baked"]) != BAKE_ITEMS:
+        fail(f"bake_uv: {len(res['baked'])} baked, failed {res['wrong']}")
+    if (not np.isfinite(uv_back).all() or not uv_back.std() > 0
+            or not min(direct) > 0):
+        fail("the baked texture is empty or not finite")
+
+    # ---- the converters at full width
+    gen = torch.Generator(device=dev).manual_seed(15)
+    with torch.device("meta"):
+        vae = VAEModel(PRESETS[TRAIN_PRESET])
+    names = convert.reference_key_map(vae)
+    src = {names[k]: torch.randn(v.shape, generator=gen, device=dev)
+           .cpu().numpy() for k, v in vae.state_dict().items()}
+    st_path, vae_out = (os.path.join(root, n) for n in
+                        ("autoencoder.safetensors", "vae_params.pt"))
+    write_safetensors(st_path, src)
+    t0 = time.perf_counter()
+    report = convert_reference_ckpt.main(["--ckpt", st_path, "--preset",
+                                          TRAIN_PRESET, "--out", vae_out])
+    vae_s = time.perf_counter() - t0
+    loaded, stats = checkpoint.load_params_any(vae_out, vae, None,
+                                               verbose=False)
+    vae_exact = all(np.array_equal(loaded[k].numpy(), src[names[k]])
+                    for k in names)
+    print(f"[convert] convert_reference_ckpt {TRAIN_PRESET} VAE: "
+          f"{os.path.getsize(st_path)} bytes -> {os.path.getsize(vae_out)} "
+          f"bytes in {vae_s:.2f} s; {report['converted']} converted, "
+          f"unmapped {report['unmapped']}, missing {len(report['missing'])}; "
+          f"read back bit for bit {vae_exact}", flush=True)
+    if (report["missing"] or report["mismatches"] or report["unmapped"]
+            or stats["missing"] or not vae_exact):
+        fail(f"convert_reference_ckpt at {TRAIN_PRESET}: {report}, {stats}")
+    del src, loaded
+
+    sap = sapiens_source(gen, dev)
+    pth, enc_out = (os.path.join(root, n) for n in ("sapiens.pth",
+                                                    "sapiens_1b.pt"))
+    torch.save(sap, pth)
+    t0 = time.perf_counter()
+    sstats = convert_sapiens.main(["--ckpt", pth, "--out", enc_out])
+    sap_s = time.perf_counter() - t0
+    with torch.device("meta"):
+        enc = sapiens_1b_encoder()
+    loaded, stats = checkpoint.load_params_any(enc_out, enc, None,
+                                               verbose=False)
+    sap_exact = all(torch.equal(loaded[k], sapiens_expected(sap, k))
+                    for k in enc.state_dict())
+    print(f"[convert] convert_sapiens at Sapiens-1B geometry "
+          f"({sum(v.numel() for v in sap.values())} source values): "
+          f"{os.path.getsize(pth)} bytes -> {os.path.getsize(enc_out)} bytes "
+          f"in {sap_s:.2f} s; {sstats['converted']} converted, unmatched "
+          f"{sstats['unmatched']}, missing {len(sstats['missing'])}; read "
+          f"back bit for bit {sap_exact}", flush=True)
+    if (sstats["missing"] or sstats["mismatches"]
+            or sstats["unmatched"] != ["backbone.cls_token"]
+            or stats["missing"] or not sap_exact):
+        fail(f"convert_sapiens: {sstats['mismatches'][:3]}, unmatched "
+             f"{sstats['unmatched']}, missing {sstats['missing'][:3]}")
+    del sap, loaded
+    shutil.rmtree(root, ignore_errors=True)
+    return {"k1_template": c_step.n1, "k2_template": c_step.n2,
+            "k1_remat": c_remat.n1, "k2_remat": c_remat.n2,
             "k1": {k: held[k] for k in ("err", "ms", "plain_ms")}
             | {"bound_ms": held["new"][0],
                "bound_ms_without_cull": held["old"][0]},

@@ -120,6 +120,34 @@ def load_smplx_npz(path: str, device=None) -> SMPLXModel:
     )
 
 
+def save_smplx_npz(model: SMPLXModel, path: str) -> None:
+    """Write ``model`` in the SMPL-X release's npz layout (``load_smplx_npz``
+    reads it back): shapedirs [V,3,10 shape | 10 expression], posedirs
+    [V,3,(J-1)*9], kintree_table [2,J], 12 PCA hand components a side."""
+    V = model.v_template.shape[0]
+
+    def host(t):
+        return t.detach().cpu().numpy()
+
+    kintree = np.stack([np.asarray(model.parents, np.int64),
+                        np.arange(len(model.parents))])
+    np.savez(
+        path,
+        v_template=host(model.v_template),
+        shapedirs=np.concatenate([host(model.shapedirs),
+                                  host(model.expr_dirs)], axis=-1),
+        posedirs=host(model.posedirs).T.reshape(V, 3, -1),
+        J_regressor=host(model.J_regressor),
+        weights=host(model.lbs_weights),
+        kintree_table=kintree,
+        f=np.asarray(model.faces, np.int64),
+        hands_componentsl=host(model.hand_components_l),
+        hands_componentsr=host(model.hand_components_r),
+        hands_meanl=host(model.hand_mean_l),
+        hands_meanr=host(model.hand_mean_r),
+    )
+
+
 def synthetic_body_model(n_verts: int = 1024, seed: int = 0,
                          device=None) -> SMPLXModel:
     """Procedural SMPL-X-shaped model (see module docstring)."""

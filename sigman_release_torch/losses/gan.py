@@ -15,6 +15,12 @@ def _groups(c: int) -> int:
     return math.gcd(32, c)
 
 
+def disc_layers(output_size: int) -> int:
+    """The discriminator's depth for renders of ``output_size``: 4 layers
+    at 512^2 like the reference, fewer for small renders."""
+    return max(1, min(4, int(math.log2(output_size)) - 3))
+
+
 class PatchDiscriminator(nn.Module):
     """images [B,V,3,H,W] or [B,3,H,W] -> patch logits [N,1,h,w].
 

@@ -22,9 +22,13 @@ package's layouts (images ``[B,V,9,H,W]``, ``z [B,h,w,C]`` -> attribute map
 reference checkpoint (``autoencoder.decoder.up_blocks.{i}.resnets.{j}.conv1``
 ...). GroupNorm uses eps 1e-6 and ``gcd(32, C)`` groups, as Flax does here.
 
-Rematerialisation (``Config.remat_policy``): "block" recomputes each resnet
-block in the backward (``torch.utils.checkpoint``), "none" keeps every
-activation. The bottleneck attention layers are recomputed under either
+Rematerialisation (``Config.remat_policy``), per resnet block of the conv
+stacks: "block" recomputes the whole block in the backward
+(``torch.utils.checkpoint``); "conv" keeps its conv outputs (conv1, conv2,
+conv_shortcut) and recomputes only GroupNorm and SiLU (a selective
+checkpoint whose policy must-saves ``aten.convolution``); "conv_enc" is
+"conv" on the 3D encoder and "block" on the 2D decoder; "none" keeps every
+activation. The bottleneck attention layers are recomputed under every
 policy, as in the JAX package. Attention dropout masks are drawn from an
 explicit ``torch.Generator`` before the checkpointed call, so the
 recomputation sees the same mask.
@@ -39,14 +43,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from sigman_release_torch.config import Config
 from sigman_release_torch.ops.grid_sample import grid_sample_2d
 from sigman_release_torch.ops.rotations import rodrigues
 from sigman_release_torch.utils.timing import NULL_TIMER
 
-REMAT_POLICIES = ("block", "none")
+REMAT_POLICIES = ("block", "conv", "conv_enc", "none")
 
 
 def _num_groups(channels: int, cap: int = 32) -> int:
@@ -63,18 +71,52 @@ def conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
 
 
-def _remat(policy: str) -> bool:
+def _stack_modes(policy: str):
+    """``Config.remat_policy`` -> (encoder mode, decoder mode), each
+    "block", "conv" or "none"."""
     if policy not in REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {policy!r}: the port carries {REMAT_POLICIES}")
-    return policy == "block"
+        raise ValueError(f"remat_policy {policy!r}: one of {REMAT_POLICIES}")
+    if policy == "conv_enc":
+        return "conv", "block"
+    return policy, policy
 
 
-def _run(module: nn.Module, remat: bool, *args):
-    """``module(*args)``, recomputed in the backward when ``remat``."""
-    if remat and torch.is_grad_enabled():
-        return checkpoint(module, *args, use_reentrant=False)
-    return module(*args)
+def set_remat_policy(model: nn.Module, policy: str) -> None:
+    """Switch a built ``VAEModel`` to another remat policy in place; the
+    weights stay."""
+    enc_mode, dec_mode = _stack_modes(policy)
+    ae = model.autoencoder
+    stacks = [(ae.decoder, dec_mode)]
+    if hasattr(ae, "encoder"):
+        stacks.append((ae.encoder, enc_mode))
+    for stack, mode in stacks:
+        for m in stack.modules():
+            if isinstance(m, ResnetBlock):
+                m.remat = mode
+
+
+def _save_convs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "conv": keep every convolution's
+    output (autocast's casts run before it and are recomputed), recompute
+    the rest."""
+    if op == torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _conv_contexts():
+    return create_selective_checkpoint_contexts(_save_convs)
+
+
+def _run(module: nn.Module, mode: str, *args):
+    """``module(*args)``: recomputed in the backward under "block",
+    recomputed but for its convolutions under "conv"."""
+    if mode == "none" or not torch.is_grad_enabled():
+        return module(*args)
+    if mode == "conv":
+        return checkpoint(module, *args, use_reentrant=False,
+                          context_fn=_conv_contexts)
+    return checkpoint(module, *args, use_reentrant=False)
 
 
 def _tokens_norm(norm: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
@@ -87,7 +129,7 @@ class ResnetBlock(nn.Module):
     (3x3x3 over (V, H, W))."""
 
     def __init__(self, in_channels: int, out_channels: int, dims: int = 2,
-                 remat: bool = False):
+                 remat: str = "none"):
         super().__init__()
         conv = nn.Conv2d if dims == 2 else nn.Conv3d
         self.norm1 = group_norm(in_channels)
@@ -125,7 +167,7 @@ class Downsample2D(nn.Module):
 
 class DownBlock3D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, n_resnets: int,
-                 downsample: bool, remat: bool):
+                 downsample: bool, remat: str):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock(in_channels if j == 0 else out_channels, out_channels,
@@ -147,7 +189,7 @@ class Encoder3D(nn.Module):
 
     def __init__(self, in_channels: int = 9,
                  block_channels: Sequence[int] = (128, 256, 256, 512),
-                 layers_per_block: int = 2, remat: bool = True):
+                 layers_per_block: int = 2, remat: str = "block"):
         super().__init__()
         chans = list(block_channels)
         self.conv_in = nn.Conv3d(in_channels, chans[0], 3, padding=1)
@@ -176,7 +218,7 @@ class Upsample2D(nn.Module):
 
 class UpBlock2D(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, n_resnets: int,
-                 upsample: bool, remat: bool = False):
+                 upsample: bool, remat: str = "none"):
         super().__init__()
         self.resnets = nn.ModuleList(
             ResnetBlock(in_channels if j == 0 else out_channels, out_channels,
@@ -198,7 +240,7 @@ class Decoder2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  block_channels: Sequence[int] = (256, 512, 512, 1024),
-                 layers_per_block: int = 3, remat: bool = False):
+                 layers_per_block: int = 3, remat: str = "none"):
         super().__init__()
         chans = list(reversed(block_channels))
         self.conv_in = conv3x3(in_channels, chans[0])
@@ -340,15 +382,15 @@ class ConvVAE(nn.Module):
 
     def __init__(self, cfg: Config, with_encoder: bool = True):
         super().__init__()
-        remat = _remat(cfg.remat_policy)
+        enc_mode, dec_mode = _stack_modes(cfg.remat_policy)
         self.decoder = Decoder2D(cfg.latent_channels, cfg.vae_out_channels,
-                                 cfg.decoder_channels, remat=remat)
+                                 cfg.decoder_channels, remat=dec_mode)
         if not with_encoder:
             return
         d = cfg.encoder_channels[-1]
         self.h = self.w = cfg.uv_query_size
         self.encoder = Encoder3D(block_channels=cfg.encoder_channels,
-                                 remat=remat)
+                                 remat=enc_mode)
         self.uv_latent = nn.Parameter(torch.empty(1, self.h * self.w, d))
         self.uv_encoding = nn.Sequential(nn.Conv2d(3, d, 8, stride=8),
                                          group_norm(d), nn.SiLU())
@@ -381,9 +423,9 @@ class ConvVAE(nn.Module):
                 raise ValueError("train=True with dropout needs a generator")
             drops = [dropout_mask(query.shape, self.attn_dropout, generator,
                                   query.device) for _ in layers]
-        attn = _run(layers[0], True, query, tokens, drops[0])
+        attn = _run(layers[0], "block", query, tokens, drops[0])
         for layer, drop in zip(layers[1:], drops[1:]):
-            attn = _run(layer, True, attn, drop)
+            attn = _run(layer, "block", attn, drop)
         proj = self.projection(attn).reshape(b, self.h, self.w, -1)
         mean, logvar = proj.chunk(2, dim=-1)
         return DiagonalGaussian(mean, torch.clamp(logvar, -30.0, 20.0))

@@ -22,11 +22,15 @@ def _unnormalize(coord, size, align_corners):
 
 
 def _corners(coord, size):
-    """Border-clamped coordinate -> (lower index, upper index, weight)."""
+    """Border-clamped coordinate -> (lower index, upper index, weight). The
+    indices are clamped again as integers: a NaN coordinate (a diverged
+    Broyden row) gives a NaN weight and in-range indices, as the JAX
+    package's clamped gathers do."""
     c = torch.clamp(coord, 0.0, size - 1.0)
     c0 = torch.clamp(torch.floor(c), 0, size - 1)
     c1 = torch.clamp(c0 + 1, 0, size - 1)
-    return c0.long(), c1.long(), c - c0
+    return (c0.long().clamp(0, size - 1), c1.long().clamp(0, size - 1),
+            c - c0)
 
 
 def grid_sample_2d(inp: torch.Tensor, grid: torch.Tensor,

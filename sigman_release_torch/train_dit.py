@@ -20,7 +20,8 @@ true``.
   ``text_embed_dim == 1536``, else a ``ViTFeatureEncoder`` of that width,
   and the trainer applies that same module. ``--sapiens_path`` loads
   Sapiens weights into the Sapiens-geometry encoder: a JAX-converted
-  msgpack parameter tree through ``convert.py``'s ViT map, or a
+  msgpack parameter tree through ``convert.py``'s ViT map, the port's
+  ``convert_sapiens`` output (a state file's ``encoder`` entry), or a
   torchscript file or state dict through ``convert.convert_sapiens``; it
   needs ``text_embed_dim`` 1536.
 * ``--resume`` restores this trainer's state file
@@ -80,7 +81,8 @@ def load_encoder(cfg, dev):
             raise ValueError(
                 f"--sapiens_path needs text_embed_dim 1536 (the Sapiens-1B "
                 f"width), not {cfg.text_embed_dim}")
-        if checkpoint.sniff_format(cfg.sapiens_path) == "msgpack":
+        if (checkpoint.sniff_format(cfg.sapiens_path) == "msgpack"
+                or "encoder" in checkpoint.port_entries(cfg.sapiens_path)):
             sd, stats = checkpoint.load_params_any(cfg.sapiens_path, encoder,
                                                    cfg)
             missing, bad = stats["missing"], stats["mismatched"]

@@ -27,6 +27,7 @@ import json
 import mmap
 import os
 import struct
+import zipfile
 from typing import Dict, Iterable, List, Optional
 
 import numpy as np
@@ -242,7 +243,8 @@ def params_tree(tree: dict) -> dict:
 
 # the entry of a port state file that holds each model's weights
 PORT_ENTRIES = (("VAEModel", "vae"), ("DiTModel", "model"),
-                ("PatchDiscriminator", "disc"))
+                ("PatchDiscriminator", "disc"),
+                ("ViTFeatureEncoder", "encoder"))
 
 
 def _port_weights(state: dict, module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -258,6 +260,22 @@ def load_torch(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def port_entries(path: str) -> List[str]:
+    """The ``PORT_ENTRIES`` weights a port state file holds; [] for any
+    other file, a torchscript archive or a plain ``state_dict`` in
+    ``torch.save``'s format included."""
+    if sniff_format(path) != "torch":
+        return []
+    with zipfile.ZipFile(path) as z:
+        if any(n.endswith("/constants.pkl") for n in z.namelist()):
+            return []                       # torchscript
+    state = torch.load(path, map_location="cpu", weights_only=True,
+                       mmap=True)
+    if not isinstance(state, dict):
+        return []
+    return [key for _, key in PORT_ENTRIES if isinstance(state.get(key), dict)]
+
+
 def load_params_any(path: str, module: nn.Module, cfg,
                     verbose: bool = True):
     """``module``'s parameters from a file in any of the three formats, as
@@ -270,8 +288,8 @@ def load_params_any(path: str, module: nn.Module, cfg,
     * msgpack: the model's parameter tree (``params_tree``) through
       ``convert.py``'s Flax-path map (a decode-only VAE takes the decode
       side of a whole VAE's tree);
-    * torch: the port's state file (its ``vae`` / ``model`` / ``disc``
-      entry).
+    * torch: the port's state file (its ``vae`` / ``model`` / ``disc`` /
+      ``encoder`` entry).
     """
     fmt = sniff_format(path)
     if fmt == "safetensors":

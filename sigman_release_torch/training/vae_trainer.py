@@ -62,7 +62,6 @@ from __future__ import annotations
 
 import contextlib
 import itertools
-import math
 import os
 from typing import Dict, Optional
 
@@ -88,7 +87,7 @@ from sigman_release_torch.config import Config
 from sigman_release_torch.device import resolve_device
 from sigman_release_torch.inference import HEAD_INIT_STD, random_weights_
 from sigman_release_torch.losses.combined import VAELoss
-from sigman_release_torch.losses.gan import PatchDiscriminator
+from sigman_release_torch.losses.gan import PatchDiscriminator, disc_layers
 from sigman_release_torch.losses.lpips import LPIPS
 from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.vae import (
@@ -248,11 +247,10 @@ class VAETrainer:
             raise NotImplementedError(f"spmd='fsdp': {LATER_SLICE}")
         self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)
 
-        # 4 layers at 512^2 like the reference; fewer for small renders
-        n_layers = max(1, min(4, int(math.log2(cfg.output_size)) - 3))
         with torch.device(dev):   # default inits run on the device
             self.vae = VAEModel(cfg).to(dev)
-            self.disc = PatchDiscriminator(n_layers=n_layers).to(dev)
+            self.disc = PatchDiscriminator(
+                n_layers=disc_layers(cfg.output_size)).to(dev)
             self.lpips = LPIPS().to(dev).requires_grad_(False)
             self.lpips_eval = (
                 LPIPS(cfg.eval_lpips_net).to(dev).requires_grad_(False)
