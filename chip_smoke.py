@@ -69,8 +69,9 @@ Phases (any failure exits non-zero before the final line):
              phase initialises: the ``vae_b`` trainer of phase 7's set-up
              under DDP (``disc_start`` 2: two G steps, then one D step with
              the gate open) against a bare trainer on the same weights and
-             noise, and the ``dit`` preset at B = 8, two steps, likewise
-             (loss, gradient at each clip, new weights; step times, peak
+             noise (and ``WORLD1_REPEATS`` more bare runs: the spread), and
+             the ``dit`` preset at B = 8, two steps, likewise (one more bare
+             run) (loss, gradient at each clip, new weights; step times, peak
              memory, buckets and bytes all-reduced; K1 / K2 launch counts
              zeroed before the DDP steps); (b) two ranks sharing the card
              over gloo, child processes with one deadline
@@ -109,13 +110,37 @@ Phases (any failure exits non-zero before the final line):
              the deformer's weight voxel; the G step under "block" (three
              runs: the gradients' spread), "conv_enc" and "conv" on the
              same weights, noise and draws (first loss, gradient at the
-             clip, median ms of 2 steps, peak GiB); ``bake_uv`` over 2
-             items of phase 14's layout (18 views at 1024^2, a 1024^2
-             atlas) read back by ``HGSDataset``; ``convert_reference_ckpt``
+             clip, median ms of 2 steps, peak GiB); ``bake_uv`` over
+             ``BAKE_ITEMS`` item of phase 14's layout (18 views at 1024^2,
+             a 1024^2 atlas) read back by ``HGSDataset``; ``convert_reference_ckpt``
              of ``vae_b`` reference safetensors and ``convert_sapiens`` of
              an mmpretrain state dict at Sapiens-1B geometry, each read
              back by ``load_params_any`` bit for bit. Files under
              ``build/smoke_template/``, removed at the end.
+16. fsdp      — last: the DiT trainer's ``spmd="fsdp"`` (FSDP2 over
+             'data', tensor parallelism over 'model', ``parallel/fsdp.py``)
+             at the ``dit`` preset's full width. (a) NCCL at world size 1,
+             in a process group the phase initialises: two FSDP steps at
+             B = 8 against two bare runs on the same weights and draws
+             (``cases.dit_case``: loss, whole gradient at each clip, new
+             weights; the ms and peak of two more untapped steps, sharded
+             bytes), then a sampling eval under FSDP on the stepped
+             weights (30 CFG steps, K1 launch count zeroed before, K1
+             against its plain version on its stream); (b) two gloo ranks
+             sharing the card against one process on the whole batch, the
+             DiT cut to ``FSDP_LAYERS`` blocks at full width, in f32
+             without TF32 at a constant learning rate: data 2 x model 1
+             and data 1 x model 2 at ``FSDP_ITEMS`` items per data index,
+             two steps, held within the ``F32_*`` limits (loss, gradient
+             over all parameters and its worst one alone, each rank's
+             global norm, the update) and each rank's parameter and AdamW
+             bytes against the analytic model within ``BYTES_TOL``; (c)
+             in the same launch, the state file: two gloo ranks at
+             ``test_tiny`` save in the middle of an accumulation; its
+             layout equals a one-process file's, one process resumes it
+             bit for bit, and its next micro-step matches the ranks'
+             within phase 12's limits. Files under ``build/smoke_fsdp/``,
+             removed at the end.
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -129,6 +154,7 @@ non-zero without CUDA.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -178,6 +204,9 @@ HIT_CLASSES = ("contributing", "saturating")
 K1_STAGE_OPS = 18
 K2_STAGE_OPS = 31
 K1_TOL = 1e-4                   # kernel vs plain, rgb / depth / alpha rows
+# a pixel whose lower final T is within this of the transmittance cut may
+# stop on either side of one pair (``k1_cut_share``)
+K1_CUT_RTOL = 1e-3
 # K2 vs plain: max |kernel - plain| per output column over the plain
 # column's max |value| (the columns span many decades)
 K2_TOL = 1e-4
@@ -197,15 +226,18 @@ SMALL_RESUME_TOL = 1e-6
 # phase 13, DDP against one process. NCCL at world size 1 against a bare
 # trainer on the same weights and noise: the first step's loss (relative),
 # its gradient at the clip and the new weights (relative L2) within
-# WORLD1_TOL plus twice what a second bare run of the same steps differs
-# by; after the first update, each loss and gradient within the limits
-# of the gloo layouts below. The steps' backward is not deterministic:
+# WORLD1_TOL plus twice the most that more bare runs of the same steps
+# differ by (``vae_b``: WORLD1_REPEATS of them, where the new weights after
+# three steps swing 6x between runs; ``dit``: one); after the first
+# update, each loss and gradient within the limits of the gloo layouts
+# below. The steps' backward is not deterministic:
 # cuDNN's attention backward and the antialiased resize before LPIPS have
 # no deterministic algorithm (``torch.use_deterministic_algorithms`` names
 # both), so two bare runs of one step differ (phase 13 prints by how much),
 # and the steps after the first start from weights that differ. A
 # process's first dit step also rounds its loss differently.
 WORLD1_TOL = 1e-6
+WORLD1_REPEATS = 3
 # two gloo ranks sharing the card against one process on the whole batch:
 # loss relative, the gradient at each clip and the update (new - old
 # weights) relative L2, each within its limit or twice the most that
@@ -416,15 +448,26 @@ def hold_k1(pairs, tile_start, tile_count, kw):
                                    **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err = k1_diff(out, plain)
-    del out
+    share = k1_cut_share(out, plain, pairs)
+    diff = ((out[:, :5] - plain[:, :5]).abs() - share).clamp_min(0)
+    err = diff.max().item()
+    worst = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    at = {"tile, row, pixel": tuple(int(i) for i in worst),
+          "row_err": [float(e) for e in diff.amax(dim=(0, 2))],
+          "kernel": [float(v) for v in out[worst[0], :6, worst[2]]],
+          "plain": [float(v) for v in plain[worst[0], :6, worst[2]]],
+          "tile_pairs": int(tile_count[worst[0]]),
+          "cut_pixels": int((share[:, 4] > 0).sum()),
+          "cut_share_max": float(share.amax())}
+    del out, diff, share
     ms = cuda_ms(lambda: k1.forward_tiles(pairs, tile_start, tile_count,
                                           **kw), reps=20)
     n_pairs = int(tile_count.sum())
     new, old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
                       k1_bytes(n_pairs, tile_start.numel()))
     return {"plain": plain, "err": err, "ms": ms, "plain_ms": plain_ms,
-            "work": work, "n_pairs": n_pairs, "new": new, "old": old}
+            "work": work, "n_pairs": n_pairs, "new": new, "old": old,
+            "worst": at}
 
 
 def hold_k2(args, kw):
@@ -468,6 +511,38 @@ def hold_k2(args, kw):
 def k1_diff(out, ref):
     """Max |kernel - plain| over the rgb, depth and alpha rows."""
     return (out[:, :5] - ref[:, :5]).abs().max().item()
+
+
+def k1_cut_share(out, ref, pairs):
+    """[n, 5, 1024]: what one pair that K1 let through and its plain
+    version did not (or the other way round) can add to |kernel - plain|
+    on the rgb, depth and alpha rows; 0 elsewhere. Both stop a pixel
+    before the first pair that would take its transmittance T below
+    ``T_EPS``, but reach T by different roundings (a running product; exp
+    of a sum of logs), so at a pixel whose T lands on the cut one may take
+    that pair and the other not. Then the lower final T (row 5) is within
+    ``K1_CUT_RTOL`` of the cut and the higher at most 1 / (1 -
+    ``ALPHA_MAX``) times it, and the pair added alpha x T_high = T_high -
+    T_low times its colour and depth to those rows and T_high - T_low to
+    alpha: at most that gap times the stream's largest |colour| and
+    |depth|. Everywhere else the two are held at ``K1_TOL`` as before."""
+    import torch
+
+    from sigman_release_torch.ops.rasterizer.binning import F_DEPTH, F_R
+    from sigman_release_torch.ops.rasterizer.forward_tiles import (
+        ALPHA_MAX,
+        T_EPS,
+    )
+
+    lo = torch.minimum(out[:, 5], ref[:, 5])
+    hi = torch.maximum(out[:, 5], ref[:, 5])
+    at_cut = (((lo - T_EPS).abs() <= K1_CUT_RTOL * T_EPS)
+              & (hi * (1 - ALPHA_MAX) <= lo * (1 + K1_CUT_RTOL)))
+    gap = torch.where(at_cut, hi - lo, 0.0)
+    scale = torch.cat([
+        pairs[:, [F_R, F_R + 1, F_R + 2, F_DEPTH]].abs().amax(dim=0),
+        torch.ones(1, device=pairs.device)])
+    return gap[:, None, :] * scale[None, :, None]
 
 
 def k2_diff(out, ref):
@@ -733,6 +808,7 @@ def main():
     ddp = ddp_phase(dev, body, template, clock)
     data = data_phase(dev, body, template, clock, train["g_step_ms"])
     tmpl = template_phase(dev, clock)
+    fsdp = fsdp_phase(dev, clock)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -757,14 +833,14 @@ def main():
         "launches": (launches + train["k1_launches"] + dit["k1_launches"]
                      + ckpt["k1_resume"] + ckpt["k1_eval"]
                      + ddp["forward_tiles"] + sum(data_k1.values())
-                     + sum(tmpl_k1.values())),
+                     + sum(tmpl_k1.values()) + fsdp["k1"]["launches"]),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
                              "dit_train": dit["k1_launches"],
                              "vae_resume": ckpt["k1_resume"],
                              "vae_eval": ckpt["k1_eval"],
                              "ddp": ddp["forward_tiles"], **data_k1,
-                             **tmpl_k1},
+                             **tmpl_k1, "fsdp": fsdp["k1"]["launches"]},
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -797,6 +873,10 @@ def main():
                      "bound_ms_without_cull":
                          tmpl["k1"]["bound_ms_without_cull"],
                      "max_abs_err": tmpl["k1"]["err"]},
+        "fsdp": {"ms": fsdp["k1"]["ms"], "plain_ms": fsdp["k1"]["plain_ms"],
+                 "bound_ms": fsdp["k1"]["bound_ms"],
+                 "bound_ms_without_cull": fsdp["k1"]["bound_ms_without_cull"],
+                 "max_abs_err": fsdp["k1"]["err"]},
     }, {
         "name": "backward_tiles",
         "route": "cuda",
@@ -809,7 +889,7 @@ def main():
                              "dit_train": 0,
                              "vae_resume": ckpt["k2_resume"],
                              "vae_eval": 0, "ddp": ddp["backward_tiles"],
-                             **data_k2, **tmpl_k2},
+                             **data_k2, **tmpl_k2, "fsdp": 0},
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -1662,6 +1742,23 @@ def world1_steps(make, kind, run, step, module, against=None):
     return out
 
 
+def hold_two_ranks(name, r0, floor, weights_key, repeats):
+    """Fail unless two ranks' run (``r0`` of a ``cases`` result) is within
+    the limits or twice the most that ``repeats`` more one-process runs
+    differ by (``floor``): each loss, each clip's gradient, and
+    ``weights_key`` ("update_rel" or "weights_rel")."""
+    checks = ([(d, f, DDP_LOSS_TOL) for d, f in
+               zip(r0["loss_rel"], floor["loss_rel"])]
+              + [(d, f, DDP_GRAD_TOL) for d, f in
+                 zip(r0["grad_rel"], floor["grad_rel"])]
+              + [(r0[weights_key], floor[weights_key], DDP_GRAD_TOL)])
+    if (r0["n_clips"][0] != r0["n_clips"][1]
+            or not all(d <= max(tol, 2 * f) for d, f, tol in checks)):
+        fail(f"{name}: two ranks differ from one process by more than the "
+             f"limits and twice the most that {repeats} more one-process "
+             f"runs differ by: {checks}")
+
+
 def ddp_phase(dev, body, template, clock):
     """Phase 13; returns the K1 / K2 launches of its DDP runs."""
     import torch
@@ -1675,7 +1772,7 @@ def ddp_phase(dev, body, template, clock):
     from sigman_release_torch.training import dit_trainer, vae_trainer
 
     clock.start("ddp")
-    # ---- (a) NCCL at world size 1 against two runs of the bare trainers
+    # ---- (a) NCCL at world size 1 against more runs of the bare trainers
     cfg = PRESETS[TRAIN_PRESET].replace(disc_start=2)
     q, c = cfg.uv_query_size, cfg.latent_channels
     noise = torch.from_numpy(np.random.default_rng(13).normal(
@@ -1701,7 +1798,8 @@ def ddp_phase(dev, body, template, clock):
 
     vae_runs = (run_vae, g_step, vae_trainer)
     bare = world1_steps(make_vae(cases.ONE), "vae", *vae_runs)
-    again = world1_steps(make_vae(cases.ONE), "vae", *vae_runs, against=bare)
+    again = [world1_steps(make_vae(cases.ONE), "vae", *vae_runs,
+                          against=bare) for _ in range(WORLD1_REPEATS)]
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{free_port()}", world_size=1, rank=0)
     try:
@@ -1747,8 +1845,8 @@ def ddp_phase(dev, body, template, clock):
         dit_runs = (lambda t: [dit_step(t), dit_step(t)], dit_step,
                     dit_trainer)
         bare = world1_steps(make_dit(cases.ONE), "dit", *dit_runs)
-        again = world1_steps(make_dit(cases.ONE), "dit", *dit_runs,
-                             against=bare)
+        again = [world1_steps(make_dit(cases.ONE), "dit", *dit_runs,
+                              against=bare)]
         wrapped = world1_steps(make_dit(mesh), "dit", *dit_runs,
                                against=bare)
         out_dit = world1_report("dit", bare, again, wrapped)
@@ -1801,16 +1899,7 @@ def ddp_phase(dev, body, template, clock):
               f"process {r0['ref_peak_gib']}, ranks "
               f"{[r['peak_gib'] for r in res]}; buckets {r0['buckets']}; "
               f"launches {[r.get('launches') for r in res]}", flush=True)
-        checks = ([(d, f, DDP_LOSS_TOL) for d, f in
-                   zip(r0["loss_rel"], floor["loss_rel"])]
-                  + [(d, f, DDP_GRAD_TOL) for d, f in
-                     zip(r0["grad_rel"], floor["grad_rel"])]
-                  + [(r0["update_rel"], floor["update_rel"], DDP_GRAD_TOL)])
-        if (r0["n_clips"][0] != r0["n_clips"][1]
-                or not all(d <= max(tol, 2 * f) for d, f, tol in checks)):
-            fail(f"{name}: two ranks differ from one process by more than "
-                 f"the limits and twice the most that {DDP_REPEATS} more "
-                 f"one-process runs differ by: {checks}")
+        hold_two_ranks(name, r0, floor, "update_rel", DDP_REPEATS)
         for key, ref_key in (("eval", "ref_eval"),
                              ("eval_loss", "ref_eval_loss")):
             if ref_key not in r0:
@@ -1828,6 +1917,280 @@ def ddp_phase(dev, body, template, clock):
     if launches["forward_tiles"] < 1 or launches["backward_tiles"] < 1:
         fail(f"the DDP runs launched K1 / K2 {launches} times")
     return {**launches, "vae": out_vae, "dit": out_dit}
+
+
+# ---- phase 16: FSDP and the 'model' axis of the DiT ------------------------
+
+FSDP_ITEMS = 2                  # items per rank of the two-rank layouts
+FSDP_LAYERS = 6                 # DiT blocks of the two-rank layouts
+BYTES_TOL = 0.01                # sharded bytes against the analytic model
+FSDP_TIMEOUT = 900              # seconds for the two ranks' runs
+# the two-rank layouts in f32 (no TF32) against one process, each limit
+# 11-17x above the largest reading on the H100 (PERF.md, section 6): loss,
+# relative; gradient at each clip, relative L2 over all parameters (and
+# each rank's global norm, relative) and of the worst one alone; the
+# update (new minus old weights), relative L2
+F32_LOSS_TOL = 1e-6
+F32_GRAD_TOL = 1e-5
+F32_LEAF_TOL = 1e-4
+F32_UPDATE_TOL = 1e-4
+
+
+def fsdp_world1_report(res):
+    """Print and check phase 16 (a): the FSDP steps at world size 1 against
+    the bare trainer (a second bare run's spread in brackets)."""
+    floor = res["floor"]
+    b = res["bytes"]
+    print(f"[fsdp] dit at world size 1 (NCCL) against the bare trainer (a "
+          f"second bare run in brackets): losses {res['losses']} / "
+          f"{res['ref_losses']}, relative {fmt(res['loss_rel'])} "
+          f"({fmt(floor['loss_rel'])}); gradient at each clip relative L2 "
+          f"{fmt(res['grad_rel'])} ({fmt(floor['grad_rel'])}); new weights "
+          f"relative L2 {res['weights_rel']:.3e} ({floor['weights_rel']:.3e})"
+          f"; two more steps untapped, ms: FSDP "
+          f"{fmt(res['step_ms'], '.1f')}, bare "
+          f"{fmt(res['ref_step_ms'], '.1f')}; peak GiB FSDP "
+          f"{res['peak_gib']}, bare {res['ref_peak_gib']}; sharded "
+          f"bytes: params {b['params']}, AdamW moments {b['moments']}, "
+          f"steps {b['steps']}, analytic {b['analytic']:.0f}", flush=True)
+    (first, *later), loss_floor = res["loss_rel"], floor["loss_rel"][0]
+    (clip, *clips), (clip_floor, *clip_floors) = (res["grad_rel"],
+                                                   floor["grad_rel"])
+    pairs = [(first, loss_floor), (clip, clip_floor),
+             (res["weights_rel"], floor["weights_rel"])]
+    if (res["n_clips"][0] != res["n_clips"][1]
+            or not all(d <= DDP_LOSS_TOL for d in later)
+            or not all(d <= max(DDP_GRAD_TOL, 2 * f)
+                       for d, f in zip(clips, clip_floors))
+            or not all(d <= WORLD1_TOL + 2 * f for d, f in pairs)):
+        fail("dit under FSDP at world size 1 differs from the bare trainer "
+             "by more than a second bare run does")
+
+
+def hold_f32_ranks(name, res):
+    """Fail unless a two-rank layout in f32 (``res``: the ranks' results of
+    ``cases.dit_case``) is within the ``F32_*`` limits of one process:
+    each loss, each clip's gradient over all parameters and its worst
+    parameter alone, the global norm each rank computes from its pieces,
+    and the update; and each rank's parameter and AdamW bytes within
+    ``BYTES_TOL`` of the analytic model."""
+    r0 = res[0]
+    leaf = [v for v, _ in r0["grad_leaf"]]
+    norms = [abs(a - b) / b for r in res
+             for a, b in zip(r["norms"], r0["ref_norms"], strict=True)]
+    checks = ([(d, F32_LOSS_TOL) for d in r0["loss_rel"]]
+              + [(d, F32_GRAD_TOL) for d in r0["grad_rel"] + norms]
+              + [(d, F32_LEAF_TOL) for d in leaf]
+              + [(r0["update_rel"], F32_UPDATE_TOL)])
+    if (r0["n_clips"][0] != r0["n_clips"][1]
+            or not all(d <= tol for d, tol in checks)):
+        fail(f"{name}: two ranks differ from one process in f32 by more "
+             f"than the limits: {checks}, worst parameters "
+             f"{r0['grad_leaf']}")
+    for r in res:
+        b = r["bytes"]
+        held_bytes = b["params"] + b["moments"]
+        if not abs(held_bytes - b["analytic"]) <= BYTES_TOL * b["analytic"]:
+            fail(f"{name}: rank {r['rank']} holds {held_bytes} B of "
+                 f"parameters and AdamW moments, the analytic model "
+                 f"{b['analytic']:.0f}")
+
+
+def fsdp_phase(dev, clock):
+    """Phase 16; returns the K1 launches of its paths and K1's numbers on
+    the FSDP sampling eval's stream."""
+    import torch
+    import torch.distributed as dist
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.parallel import cases, launch
+
+    clock.start("fsdp")
+    cfg = PRESETS[DIT_PRESET].replace(spmd="fsdp")
+    # ---- (a) NCCL at world size 1: two FSDP steps at B = 8 against two
+    # bare runs, then a sampling eval under FSDP with K1 on its stream
+    captured = {}
+    real_forward = render_lib.forward_tiles
+
+    def capturing_forward(*a, **kw):       # keeps the eval render's K1 inputs
+        captured.update(args=a, kw=kw)
+        return real_forward(*a, **kw)
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    render_lib.forward_tiles = capturing_forward
+    try:
+        t0 = time.perf_counter()
+        res = cases.dit_case(
+            cfg, items=list(range(cfg.batch_size)), steps=2, draw_seed=16,
+            repeat=1, mesh_shape=(1,), mesh_axes=("data",), n_verts=N_VERTS,
+            sample_steps=cfg.num_inference_steps, timed=2, device=dev)
+        a_s = time.perf_counter() - t0
+    finally:
+        render_lib.forward_tiles = real_forward
+        dist.destroy_process_group()
+    gc.collect()                # FSDP's module state holds cycles
+    torch.cuda.empty_cache()
+    fsdp_world1_report(res)
+    k1_fsdp = res["sample_launches"]
+    print(f"[fsdp] (a) {a_s:.1f} s; sample_eval under FSDP after the steps "
+          f"({cfg.num_inference_steps} CFG steps): sample PSNR "
+          f"{res['sample']['sample_psnr']:.4f}, forward_tiles launches "
+          f"{k1_fsdp}", flush=True)
+    if k1_fsdp != 1 or not np.isfinite(res["sample"]["sample_psnr"]):
+        fail(f"the FSDP sampling eval launched forward_tiles {k1_fsdp} "
+             f"times, PSNR {res['sample']['sample_psnr']}")
+    a, kw = captured["args"], captured["kw"]
+    with torch.no_grad():
+        held = hold_k1(*a[:3], kw)
+    print(f"[k1 fsdp] forward_tiles on the FSDP sampling eval's stream "
+          f"({held['n_pairs']} pairs in {a[1].numel()} tiles) "
+          f"{held['ms']:.4f} ms, plain {held['plain_ms']:.1f} ms, max "
+          f"|kernel - plain| {held['err']:.3e}; "
+          f"{bound_text(held['ms'], held['new'], held['old'])}", flush=True)
+    print(f"[k1 fsdp] largest difference (rows rgb, depth, alpha, final T): "
+          f"{held['worst']}", flush=True)
+    if not held["err"] <= K1_TOL:
+        fail(f"forward_tiles disagrees with its plain version on the FSDP "
+             f"sampling eval's stream: {held['err']}")
+    k1_out = {"launches": k1_fsdp, "err": held["err"], "ms": held["ms"],
+              "plain_ms": held["plain_ms"], "bound_ms": held["new"][0],
+              "bound_ms_without_cull": held["old"][0]}
+    del captured, a, held, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) two ranks sharing the card over gloo, against one process on
+    # the whole batch, at full width and FSDP_LAYERS blocks (over gloo each
+    # rank's collectives pass through the host: a step of all 30 took 22 s
+    # at data 2), in f32 without TF32 and at a constant learning rate, so
+    # that the sharding's own rounding is all that differs; then (c) the
+    # state file: data 2 at test_tiny, two micro-steps per update, saved
+    # after micro-step 1 and resumed by one process here, which takes
+    # micro-step 2 beside the ranks. One launch runs all three.
+    wide = cfg.replace(num_layers=FSDP_LAYERS, mixed_precision="no",
+                       lr_scheduler="constant")
+    layouts = [("dit data 2 x model 1", (2,), ("data",)),
+               ("dit data 1 x model 2", (1, 2), ("data", "model"))]
+    small = PRESETS["test_tiny"].replace(gradient_accumulation_steps=2,
+                                         noised_condition_dropout=0.5,
+                                         spmd="fsdp")
+    path = os.path.join(ROOT, "build", "smoke_fsdp", "dit_state.pt")
+    runs = [("dit_case", dict(cfg=wide, mesh_shape=shape, mesh_axes=axes,
+                              items=list(range(FSDP_ITEMS * shape[0])),
+                              steps=2, draw_seed=16))
+            for _, shape, axes in layouts]
+    runs.append(("dit_case", dict(cfg=small, mesh_shape=(2,),
+                                  mesh_axes=("data",), items=[0, 1, 2, 3],
+                                  steps=1, save_path=path, after_save=1)))
+    prev_env = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"      # f32 in the children
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    try:
+        t0 = time.perf_counter()
+        res = launch.run("sigman_release_torch.parallel.cases:series", 2,
+                         {"runs": runs}, device="cuda:0", backend="gloo",
+                         timeout=FSDP_TIMEOUT, threads=4)
+        b_s = time.perf_counter() - t0
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        same_layout = fsdp_file_layout(path)
+        resumed = fsdp_resumed_step(small, path, res[0][2], dev)
+    finally:
+        if prev_env is None:
+            os.environ.pop("NVIDIA_TF32_OVERRIDE", None)
+        else:
+            os.environ["NVIDIA_TF32_OVERRIDE"] = prev_env
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+        for f in (path, path + ".one"):
+            if os.path.exists(f):
+                os.remove(f)
+    print(f"[fsdp] (b) and (c): 2 gloo ranks on one card in {b_s:.1f} s",
+          flush=True)
+    for i, (name, shape, _) in enumerate(layouts):
+        ranks = [r[i] for r in res]
+        r0 = ranks[0]
+        print(f"[fsdp] {name}, {FSDP_LAYERS} of {cfg.num_layers} blocks, f32 "
+              f"without TF32, constant lr: against one process on "
+              f"{FSDP_ITEMS * shape[0]} items: loss relative "
+              f"{fmt(r0['loss_rel'])}, gradient at each clip relative L2 "
+              f"{fmt(r0['grad_rel'])}, worst parameter {r0['grad_leaf']}, "
+              f"global norms {[r['norms'] for r in ranks]} / "
+              f"{r0['ref_norms']}, update relative L2 "
+              f"{r0['update_rel']:.3e}, new weights {r0['weights_rel']:.3e}; "
+              f"step ms (less the comparisons' gathers and copies): one "
+              f"process {fmt(r0['ref_step_ms'], '.1f')}, ranks "
+              f"{[fmt(r['step_ms'], '.1f') for r in ranks]}; peak GiB one "
+              f"process {r0['ref_peak_gib']}, ranks "
+              f"{[r['peak_gib'] for r in ranks]}; sharded bytes "
+              f"{[r['bytes'] for r in ranks]}", flush=True)
+        hold_f32_ranks(name, ranks)
+    print(f"[fsdp] (c) state file of 2 ranks at micro-step 1 of 2: the "
+          f"one-process file's layout {same_layout}; resumed by one process "
+          f"bit for bit {resumed['exact']}; micro-step 2 (the update) loss "
+          f"relative {resumed['loss_rel']:.3e}, new weights relative L2 "
+          f"{resumed['weights_rel']:.3e}", flush=True)
+    if not (same_layout and resumed["exact"]
+            and resumed["loss_rel"] <= RESUME_LOSS_TOL
+            and resumed["weights_rel"] <= RESUME_PARAM_TOL):
+        fail(f"the sharded state file round trip: {same_layout}, {resumed}")
+    return {"k1": k1_out}
+
+
+def fsdp_file_layout(path) -> bool:
+    """Whether the sharded trainer's state file has the one-process file's
+    (``path + ".one"``) entries, names, shapes and dtypes."""
+    import torch
+
+    a, b = (torch.load(f, map_location="cpu", weights_only=True)
+            for f in (path, path + ".one"))
+
+    def shapes(state):
+        opt = state["optimizer"]
+        return ([(k, v.shape, v.dtype) for k, v in state["model"].items()],
+                [(i, k, v.shape, v.dtype) for i, s in opt["state"].items()
+                 for k, v in s.items()], opt["param_groups"],
+                [None if g is None else g.shape for g in state["grads"]])
+
+    return list(a) == list(b) and shapes(a) == shapes(b)
+
+
+def fsdp_resumed_step(cfg, path, r0, dev) -> dict:
+    """One process resumes the sharded state file: is it bit for bit what
+    the ranks saved (weights, AdamW state, gradient sums, counts), and
+    does its next micro-step (the same batch and draws) match theirs?"""
+    import torch
+
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.parallel import cases
+    from sigman_release_torch.training.dit_trainer import (
+        RAW_KEYS, DiTTrainer)
+
+    vae, _, encoder = cases._dit_parts(cfg, dev)
+    t = DiTTrainer(cfg, vae, encoder, device=dev)
+    t.resume(path)
+    model, opt, grads = r0["saved"]
+    exact = ((t.step, t.updates, t._micro) == (1, 0, 1) and all(
+        torch.equal(p.detach().cpu(), model[n]) and
+        torch.equal(p.grad.cpu(), g)
+        for (n, p), g in zip(t.model.named_parameters(), grads)) and all(
+        torch.equal(v.cpu(), opt["state"][i][k])
+        for i, s in t.opt.state_dict()["state"].items()
+        for k, v in s.items()))
+    data = SyntheticAvatarDataset(cfg, n_items=5, seed=cfg.seed)
+    batch = t.to_device({k: np.stack([data[i][k] for i in range(4)])
+                         for k in RAW_KEYS})
+    draws = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in cases.dit_draws(cfg, 4, 2).items()}
+    loss = float(t.train_step(batch, draws)["loss"])
+    want = r0["after_losses"][0]
+    return {"exact": exact and t.updates == 1,
+            "loss_rel": abs(loss - want) / abs(want),
+            "weights_rel": rel_l2(list(t.model.parameters()),
+                                  r0["after_weights"])}
 
 
 # ---- phase 14: real data and the evaluation entry points -------------------
@@ -2270,7 +2633,7 @@ def data_phase(dev, body, template, clock, g_step_ms):
 TEMPLATE_VERTS = 40_002
 TEMPLATE_REGION = 2_222
 TEMPLATE_GAUSSIANS = (90_000, 110_000)
-BAKE_ITEMS = 2
+BAKE_ITEMS = 1
 RASTER_CHECK_FACES = 2_000      # the card's rasterizer against the CPU's
 SNARF_RECOVER_DIST = 1e-3       # a valid init "recovers" its anchor within
 REMAT_LOSS_TOL = 1e-5           # first loss under each policy, relative
@@ -2578,7 +2941,7 @@ def template_phase(dev, clock):
         fail(f"rasterize_mesh on the card differs from the CPU: ids equal "
              f"{same_ids}, values {r_diff}")
 
-    # ---- UV bake of 2 items of the reference's layout
+    # ---- UV bake of BAKE_ITEMS items of the reference's layout
     items_root = os.path.join(root, "items")
     dirs, lst, _ = write_hgs_items(items_root, BAKE_ITEMS, rng)
     bake_ms = []
@@ -2688,38 +3051,43 @@ def fmt(values, spec=".3e"):
 
 def world1_report(name, bare, again, wrapped):
     """Print and check one world-size-1 comparison (``world1_steps``): the
-    DDP run and a second bare run, each against the first bare run."""
+    DDP run and more bare runs (``again``), each against the first bare
+    run; the most the bare runs differ by is the floor."""
     def loss_rel(run):
         return [abs(a - b) / max(abs(b), 1e-30)
                 for a, b in zip(run["losses"], bare["losses"])]
 
+    def most(rows):
+        return [max(v) for v in zip(*rows)]
+
+    loss_floor = most(loss_rel(a) for a in again)
+    clip_floor = most(a["clip_rel"] for a in again)
+    weights_floor = max(a["weights_rel"] for a in again)
     b = wrapped["buckets"]
     print(f"[ddp] {name} at world size 1 (NCCL) against the bare trainer "
-          f"(a second bare run in brackets): losses {wrapped['losses']} / "
-          f"{bare['losses']}, relative {fmt(loss_rel(wrapped))} "
-          f"({fmt(loss_rel(again))}); gradient at each clip relative L2 "
-          f"{fmt(wrapped['clip_rel'])} ({fmt(again['clip_rel'])}); new "
-          f"weights relative L2 {wrapped['weights_rel']:.3e} "
-          f"({again['weights_rel']:.3e}); two more steps untapped, ms: DDP "
-          f"{fmt(wrapped['ms'], '.1f')}, bare {fmt(bare['ms'], '.1f')} "
-          f"({fmt(again['ms'], '.1f')}); peak GiB DDP {wrapped['peak']:.2f}, "
-          f"bare {bare['peak']:.2f} ({again['peak']:.2f}); {b['count']} "
-          f"bucket(s), {b['bytes']} gradient bytes all-reduced per step",
-          flush=True)
-    (first, *later), floor = loss_rel(wrapped), loss_rel(again)[0]
-    (clip, *clips), (clip_floor, *clip_floors) = (wrapped["clip_rel"],
-                                                   again["clip_rel"])
-    pairs = [(first, floor), (clip, clip_floor),
-             (wrapped["weights_rel"], again["weights_rel"])]
+          f"(the most that {len(again)} more bare run(s) differ by in "
+          f"brackets): losses {wrapped['losses']} / {bare['losses']}, "
+          f"relative {fmt(loss_rel(wrapped))} ({fmt(loss_floor)}); gradient "
+          f"at each clip relative L2 {fmt(wrapped['clip_rel'])} "
+          f"({fmt(clip_floor)}); new weights relative L2 "
+          f"{wrapped['weights_rel']:.3e} ({weights_floor:.3e}); two more "
+          f"steps untapped, ms: DDP {fmt(wrapped['ms'], '.1f')}, bare "
+          f"{fmt(bare['ms'], '.1f')} ({fmt(again[0]['ms'], '.1f')}); peak "
+          f"GiB DDP {wrapped['peak']:.2f}, bare {bare['peak']:.2f} "
+          f"({again[0]['peak']:.2f}); {b['count']} bucket(s), {b['bytes']} "
+          f"gradient bytes all-reduced per step", flush=True)
+    (first, *later), (clip, *clips) = loss_rel(wrapped), wrapped["clip_rel"]
+    pairs = [(first, loss_floor[0]), (clip, clip_floor[0]),
+             (wrapped["weights_rel"], weights_floor)]
     if (len(wrapped["clip_rel"]) != len(bare["clips"])
             or not all(d <= DDP_LOSS_TOL for d in later)
             or not all(d <= max(DDP_GRAD_TOL, 2 * f)
-                       for d, f in zip(clips, clip_floors))
+                       for d, f in zip(clips, clip_floor[1:]))
             or not all(d <= WORLD1_TOL + 2 * f for d, f in pairs)):
         fail(f"{name} under DDP at world size 1 differs from the bare "
-             f"trainer by more than a second bare run does")
+             f"trainer by more than the bare runs do")
     return {"ms": wrapped["ms"], "bare_ms": bare["ms"],
-            "again_ms": again["ms"], "peak": wrapped["peak"],
+            "again_ms": again[0]["ms"], "peak": wrapped["peak"],
             "bare_peak": bare["peak"], "buckets": b}
 
 

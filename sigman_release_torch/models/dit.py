@@ -110,8 +110,11 @@ class RMSNormPerHead(nn.Module):
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):  # [..., d]
+        return self.normalize(x, self.weight)
+
+    def normalize(self, x, weight):
         var = x.float().pow(2).mean(dim=-1, keepdim=True)
-        return (x * torch.rsqrt(var + self.eps) * self.weight).to(x.dtype)
+        return (x * torch.rsqrt(var + self.eps) * weight).to(x.dtype)
 
 
 class JointAttention(nn.Module):
@@ -133,8 +136,8 @@ class JointAttention(nn.Module):
         s_cond = cond.shape[1]
         b, s, _ = x.shape
 
-        def split(t):
-            return t.reshape(b, s, self.heads, self.head_dim)
+        def split(t):   # this rank's heads under tensor parallelism
+            return t.reshape(b, s, -1, self.head_dim)
 
         q = self.norm_q(split(self.to_q(x)))
         k = self.norm_k(split(self.to_k(x)))

@@ -4,22 +4,25 @@ package's ``parallel/mesh.py``).
 The JAX package runs one program over a device mesh: ``shard_map`` hands
 each device its block of the batch and ``pmean`` averages the gradients and
 logs over the mesh axes. Here each rank is one process with one device, as
-under ``torchrun`` (or the reference's ``accelerate``): DDP averages the
-gradients over every rank, and the trainers reduce their logs and eval
-statistics with the collectives of :class:`Mesh`.
+under ``torchrun`` (or the reference's ``accelerate``): DDP (or, for the
+DiT's ``spmd="fsdp"``, FSDP2 and tensor parallelism over
+:meth:`Mesh.device_mesh`, ``parallel/fsdp.py``) handles the gradients, and
+the trainers reduce their logs and eval statistics with the collectives of
+:class:`Mesh`.
 
 * Axes: ``"data"`` (each data index reads its own items: ``data/loader.py``'s
-  ``shard_for_host``) and ``"view"`` (the ranks of one data index read the
+  ``shard_for_host``), ``"view"`` (the ranks of one data index read the
   same items and each renders its own block of the supervised views,
-  ``VIEW_SHARDED_KEYS``). Ranks are laid out data-major, as the JAX package
-  reshapes its device list.
+  ``VIEW_SHARDED_KEYS``) and ``"model"`` (the ranks of one data index read
+  the same items, share one generator seed, and each holds its share of the
+  DiT blocks' heads and FFN width). 'view' and 'model' never appear
+  together, as in the JAX package. Ranks are laid out data-major, as the
+  JAX package reshapes its device list: on (2, 2), ranks 0-1 are data 0.
 * ``batch_sharding`` and ``replicate`` have no counterpart. They name a
   placement of one global array across devices; under DDP each rank holds
   whole tensors of its own. A replicated array is a tensor every rank holds
   (DDP broadcasts rank 0's weights when it wraps a module), a batch-sharded
   one the share :func:`shard_batch` gives this rank.
-* The JAX package's 'model' axis and its DiT trainer's ``spmd="fsdp"`` are
-  a later slice of the port: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,9 +39,7 @@ import torch.distributed as dist
 
 from sigman_release_torch.device import resolve_device
 
-AXES = ("data", "view")
-LATER_SLICE = ("not ported yet: FSDP and the 'model' axis are a later slice "
-               "of the port (ROADMAP.md, queue 1)")
+AXES = ("data", "view", "model")
 
 # batch keys whose second dim is the render-view axis, shardable over a
 # 'view' axis: each view rank rasterizes its views of every item against
@@ -83,7 +84,8 @@ def is_rank0() -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a ('data'[, 'view']) layout of the world.
+    """This rank's place in a ('data'[, 'view' | 'model']) layout of the
+    world.
 
     ``shape`` and ``axis_names`` as in the JAX package's mesh, ``coords``
     this rank's index on each axis, ``groups`` one process group per axis
@@ -127,6 +129,32 @@ class Mesh:
     @property
     def view_size(self) -> int:
         return self.size("view")
+
+    @property
+    def model_index(self) -> int:
+        return self.index("model")
+
+    @property
+    def model_size(self) -> int:
+        return self.size("model")
+
+    def device_mesh(self, device_type: str):
+        """The ``DeviceMesh`` of this layout over the axis groups that
+        :func:`make_mesh` created (dim names the mesh's axes: ``("data",)``
+        or ``("data", "model")``), for FSDP2 and tensor parallelism. Needs a
+        process group and no 'view' axis."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not self.distributed or "view" in self.axis_names:
+            raise ValueError(f"device_mesh: mesh {self.axis_names} "
+                             f"(distributed: {self.distributed})")
+        ranks = np.arange(self.world).reshape(self.shape)
+        if len(self.axis_names) == 1:
+            return DeviceMesh.from_group(self.groups[0], device_type,
+                                         mesh_dim_names=self.axis_names)
+        return DeviceMesh.from_group(list(self.groups), device_type,
+                                     mesh=ranks,
+                                     mesh_dim_names=self.axis_names)
 
     # ---- collectives over every rank (no-ops without a process group)
 
@@ -173,6 +201,14 @@ class Mesh:
         dist.all_gather_object(out, obj)
         return out
 
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s ``obj`` (picklable) on every rank."""
+        if not self.distributed:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=src)
+        return box[0]
+
     def barrier(self):
         if self.distributed:
             dist.barrier()
@@ -181,16 +217,16 @@ class Mesh:
 def make_mesh(shape: Sequence[int] = (-1,),
               axes: Sequence[str] = ("data",)) -> Mesh:
     """The layout of this process's world over ``axes`` (``"data"`` first,
-    then optionally ``"view"``); -1 takes what the other axes leave of the
-    world size. Ranks are laid out data-major (rank = data_index x view size
-    + view_index). Every rank must call it: it creates one process group per
-    line of each axis."""
+    then optionally ``"view"`` or ``"model"``); -1 takes what the other axes
+    leave of the world size. Ranks are laid out data-major (rank =
+    data_index x second axis size + its index). Every rank must call it: it
+    creates one process group per line of each axis."""
     axes = tuple(axes)
     unknown = [a for a in axes if a not in AXES]
-    if unknown:
-        raise NotImplementedError(f"mesh axes {unknown}: {LATER_SLICE}")
-    if axes[0] != "data" or len(set(axes)) != len(axes):
-        raise ValueError(f"mesh axes {axes}: 'data' first, each once")
+    if (unknown or axes[0] != "data" or len(set(axes)) != len(axes)
+            or {"view", "model"} <= set(axes)):
+        raise ValueError(f"mesh axes {axes}: 'data' first, then 'view' or "
+                         f"'model', each once")
     shape = [int(s) for s in shape]
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} does not match axes {axes}")
@@ -223,8 +259,8 @@ def rank_seed(seed: int, data_index: int = 0, step: int = 0) -> int:
     """A generator seed for (seed, data index, step): ``seed`` itself at
     data index 0 and step 0, so that one process draws as it always has;
     else 64 bits of a ``numpy.random.SeedSequence`` of the three. The view
-    ranks of one data index share it, so they draw the same posterior noise
-    and dropout masks."""
+    (and model) ranks of one data index share it, so they draw the same
+    posterior noise and dropout masks."""
     if data_index == 0 and step == 0:
         return int(seed)
     return int(np.random.SeedSequence([int(seed), int(data_index), int(step)])

@@ -38,6 +38,17 @@ rank's held-out share, and rank 0 alone samples, prints and writes files:
     torchrun --nproc_per_node 4 -m sigman_release_torch.train_dit dit \
         --train_list items.npy
 
+With ``--spmd fsdp`` the DiT's parameters, gradients and AdamW state are
+sharded over ``data`` (FSDP2) and, on a ``model`` axis, its blocks split
+Megatron-style (tensor parallelism; the ranks of one data index read the
+same items); the step equals one process on the whole batch, draws
+included, every rank samples in the eval, and the state file is the one a
+single process writes:
+
+    torchrun --nproc_per_node 4 -m sigman_release_torch.train_dit dit \
+        --train_list items.npy --spmd fsdp --mesh_shape 2,2 \
+        --mesh_axes data,model
+
 Models are built on the device. Metrics go to
 ``<workspace>/dit_metrics.jsonl``; every ``eval_steps`` the eval loss over
 the held-out items (up to 4, in order, the last batch kept whole) and a

@@ -1,1 +1,2 @@
-"""Training loops (the VAE trainer; the DiT trainer is not ported yet)."""
+"""Training loops: the VAE trainer and the DiT trainer (with its FSDP and
+'model' axis, ``parallel/fsdp.py``)."""

@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from sigman_release_torch import convert
+from sigman_release_torch.parallel import fsdp
 from sigman_release_torch.parallel.mesh import rank_seed
 
 
@@ -338,16 +339,23 @@ def rank_state(mesh, generator: torch.Generator, *partial) -> dict:
 
 
 def restore_generator_(generator: torch.Generator, state: dict, mesh,
-                       seed: int):
-    """This rank's generator from a state file: its own saved state when
-    the file holds one per rank of this world (a single-process file holds
-    ``generator``); else re-seeded from (``seed``, data index, step),
-    which it prints."""
+                       seed: int, shared: bool = False):
+    """This rank's generator from a state file. A file whose ranks all hold
+    one state (one process, FSDP, or one data index) continues as that
+    stream in a ``shared`` trainer (one stream on every rank, as under
+    FSDP) or in one process; else a file with one state per rank of this
+    world gives each rank its own (a single-process file holds
+    ``generator``). Otherwise the generator is re-seeded from (``seed``,
+    data index, step), which it prints."""
     states = state.get("generators") or [state["generator"]]
-    if len(states) == mesh.world:
+    one = all(torch.equal(s, states[0]) for s in states)
+    if (shared or mesh.world == 1) and one:
+        generator.set_state(states[0])
+        return
+    if not shared and len(states) == mesh.world:
         generator.set_state(states[mesh.rank])
         return
-    generator.manual_seed(rank_seed(seed, mesh.data_index,
+    generator.manual_seed(rank_seed(seed, 0 if shared else mesh.data_index,
                                     int(state["step"])))
     if mesh.rank == 0:
         print(f"[ckpt] the state file holds {len(states)} rank(s)' "
@@ -359,18 +367,20 @@ def restore_generator_(generator: torch.Generator, state: dict, mesh,
 def partial_grads(params: Iterable[torch.Tensor], micro: int,
                   k: int) -> Optional[List[Optional[torch.Tensor]]]:
     """The gradient sums of a partial accumulation (``micro % k`` micro-steps
-    taken since the last update), else None."""
+    taken since the last update; pieces of DTensors for a sharded model),
+    else None."""
     if micro % k == 0:
         return None
     return [p.grad for p in params]
 
 
 def restore_grads_(params: Iterable[torch.Tensor], grads):
-    """Put saved gradient sums back (None clears them)."""
+    """Put saved gradient sums (whole tensors) back, each cut as its
+    parameter is (None clears them)."""
     params = list(params)
     grads = grads if grads is not None else [None] * len(params)
     for p, g in zip(params, grads, strict=True):
-        p.grad = None if g is None else g.to(p.device, p.dtype)
+        p.grad = None if g is None else fsdp.shard_like(g, p)
 
 
 def optimizer_parts(opt_state: dict):
@@ -400,11 +410,15 @@ def optimizer_parts(opt_state: dict):
 
 def load_adamw_(opt: torch.optim.Optimizer, moments, count: int):
     """Set ``opt``'s state from per-parameter (first, second) moments in
-    parameter order, after ``count`` updates."""
+    parameter order (whole tensors, each cut as its parameter is), after
+    ``count`` updates."""
     sd = opt.state_dict()
-    sd["state"] = {i: {"step": torch.tensor(float(count)), "exp_avg": m,
-                       "exp_avg_sq": v}
-                   for i, (m, v) in enumerate(moments)}
+    params = [p for group in opt.param_groups for p in group["params"]]
+    sd["state"] = {i: {"step": torch.tensor(float(count)),
+                       "exp_avg": fsdp.shard_like(m, p),
+                       "exp_avg_sq": fsdp.shard_like(v, p)}
+                   for i, ((m, v), p) in enumerate(zip(moments, params,
+                                                       strict=True))}
     opt.load_state_dict(sd)
 
 
@@ -413,17 +427,19 @@ def tree_params(module: nn.Module, tree: dict, key_map,
     """A parameter-shaped tree of a msgpack state file (weights, Adam
     moments or accumulated gradients) as tensors in ``module``'s parameter
     order, through ``key_map`` (``convert.py``); what the tree lacks is the
-    module's weight (``fill="weights"``) or zero, as ``tolerant_restore``
-    reports."""
+    module's weight (``fill="weights"``; whole, gathered from a sharded
+    module on every rank) or zero, as ``tolerant_restore`` reports."""
     named = list(module.named_parameters())
-    target = {n: p.detach() if fill == "weights" else torch.zeros_like(p)
+    target = {n: fsdp.full(p.detach()) if fill == "weights" else
+              torch.zeros(p.shape, dtype=p.dtype, device=fsdp.local(p).device)
               for n, p in named}
     sd, _ = tolerant_restore(target, convert.map_tree(tree, key_map))
     return [sd[n] for n, _ in named]
 
 
 def copy_params_(params: Iterable[torch.Tensor], values):
+    """Copy whole tensors into parameters, each cut as its parameter is."""
     with torch.no_grad():
         for p, v in zip(params, values, strict=True):
-            p.copy_(v)
+            p.copy_(fsdp.shard_like(v, p))
 

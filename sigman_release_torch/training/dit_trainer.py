@@ -37,17 +37,28 @@ clipping + AdamW.
   ``eval_loss`` are averaged over the ranks weighted by items;
   ``sample_eval`` runs the bare DiT and no collective, on rank 0 in
   ``fit``.
+* ``spmd="fsdp"`` with a process group (the JAX package's FSDP, and its
+  'model' axis): the DiT is built whole with the seeded weights, then
+  sharded in place (``parallel/fsdp.py``: tensor parallelism over 'model',
+  FSDP2 over 'data'); AdamW runs on the shards. The step has the JAX fsdp
+  step's global semantics: every rank draws the whole world's draws from
+  one generator (not folded by the data index) and keeps its rows, so at
+  any world size it equals one process on the whole batch. Gradients are
+  reduce-scattered after every micro-step and accumulate in their shards,
+  as the JAX package's sharded ``acc_grads``. Every DiT forward is
+  collective: ``eval_loss`` runs one on a rank without a batch too, and
+  ``sample`` / ``sample_eval`` run on every rank with the same batch
+  (``fit`` hands every rank rank 0's first eval batch). Without a process
+  group the trainer runs as one process.
 * ``sample_eval`` divides the sampled latents by ``vae_scaling_factor``
   once (inside the sampler), as the single-image serving path does.
 * State files: ``save`` writes the port's own (weights, optimizer, step
   counts, a partial accumulation's gradient sums, the generator);
   ``resume`` also reads the JAX package's msgpack state file (a full train
   state, or bare parameters) and the reference's safetensors (parameters
-  only), through ``training/checkpoint.py``.
-
-The JAX package's FSDP (``spmd="fsdp"``) and its 'model' axis are a later
-slice of the port and raise ``NotImplementedError``; one H100 holds the
-``dit`` preset's state.
+  only), through ``training/checkpoint.py``. A sharded trainer writes and
+  reads whole tensors (``fsdp.full_state_dict``): its file is the one a
+  single process writes, and any world size or layout resumes it.
 """
 
 from __future__ import annotations
@@ -74,8 +85,8 @@ from sigman_release_torch.models.encoders import (
     sapiens_1b_encoder,
 )
 from sigman_release_torch.models.vae import VAEModel
+from sigman_release_torch.parallel import fsdp
 from sigman_release_torch.parallel.mesh import (
-    LATER_SLICE,
     Mesh,
     make_mesh,
     prefetch_to_device,
@@ -129,14 +140,14 @@ class DiTTrainer:
         an optional ``(z [B,h,w,Cl], device batch, timer=) -> outputs``
         decode + deform + render callable (a ``LatentRenderer``) for
         ``sample_eval``; ``mesh``: this rank's place in the data-parallel
-        layout (default ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``; 'data'
-        only). The DiT is built on ``device`` with seeded random weights
-        (``init``), under DDP when a process group exists."""
+        layout (default ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``; no
+        'view' axis). The DiT is built on ``device`` with seeded random
+        weights (``init``); with a process group it runs under DDP, or
+        sharded with ``cfg.spmd == "fsdp"``."""
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
-        if cfg.spmd == "fsdp":
-            raise NotImplementedError(f"spmd='fsdp': {LATER_SLICE}")
         self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        self.fsdp = cfg.spmd == "fsdp" and self.mesh.distributed
         if self.mesh.view_size > 1:
             raise ValueError("the DiT trainer shards its batch over 'data' "
                              "only; its mesh has a 'view' axis of "
@@ -150,7 +161,11 @@ class DiTTrainer:
         self.pipeline = SamplePipeline(cfg, self.scheduler)
         self.autocast = cfg.mixed_precision == "bf16"
         self.init(cfg.seed)
-        self.ddp = wrap_ddp(self.model, dev) if self.mesh.distributed else None
+        self.ddp = None
+        if self.fsdp:
+            fsdp.shard_dit(self.model, self.mesh)
+        elif self.mesh.distributed:
+            self.ddp = wrap_ddp(self.model, dev)
         self.opt = torch.optim.AdamW(self.model.parameters(), lr=cfg.lr,
                                      betas=(0.9, 0.95), eps=1e-8,
                                      weight_decay=1e-4,
@@ -164,12 +179,12 @@ class DiTTrainer:
     def init(self, seed: int):
         """Seeded DiT weights (linear/conv N(0, 1/fan_in), biases 0, norms
         1); the trainer's generator restarts from ``seed`` and the mesh's
-        data index."""
+        data index (under FSDP every rank draws one stream: data index 0)."""
         dev = self.device
         self.model = build_on(dev, lambda: DiTModel(self.cfg),
                               torch.Generator(device=dev).manual_seed(seed + 2))
         self.generator = torch.Generator(device=dev).manual_seed(
-            rank_seed(seed + 5, self.mesh.data_index))
+            rank_seed(seed + 5, 0 if self.fsdp else self.mesh.data_index))
 
     def lr_at(self, count: int) -> float:
         """The learning rate of the update that follows ``count`` applied
@@ -238,19 +253,30 @@ class DiTTrainer:
             cond = self.encoder(batch["sapiens_input"])
         return latent.contiguous(), cond
 
+    def _rows(self, b: int):
+        """(start, whole) of this rank's b rows among the whole world's
+        draws: under FSDP (b x data size rows, this data index's block),
+        else (0, b)."""
+        if not self.fsdp:
+            return 0, b
+        return self.mesh.data_index * b, b * self.mesh.data_size
+
     def draw(self, b: int) -> Dict[str, torch.Tensor]:
         """One step's random draws from the trainer's generator: posterior
-        noise, timesteps U{0..T-1}, latent noise, dropout [B,1,1,1]."""
+        noise, timesteps U{0..T-1}, latent noise, dropout [B,1,1,1]; under
+        FSDP this rank's rows of the whole world's draws."""
         cfg, g, dev = self.cfg, self.generator, self.device
         q, c = cfg.uv_query_size, cfg.latent_channels
-        return {
-            "enc_noise": torch.randn((b, q, q, c), generator=g, device=dev),
-            "t": torch.randint(0, cfg.num_train_timesteps, (b,), generator=g,
+        start, n = self._rows(b)
+        whole = {
+            "enc_noise": torch.randn((n, q, q, c), generator=g, device=dev),
+            "t": torch.randint(0, cfg.num_train_timesteps, (n,), generator=g,
                                device=dev),
-            "noise": torch.randn((b, c, q, q), generator=g, device=dev),
-            "drop": torch.rand((b, 1, 1, 1), generator=g, device=dev)
+            "noise": torch.randn((n, c, q, q), generator=g, device=dev),
+            "drop": torch.rand((n, 1, 1, 1), generator=g, device=dev)
             < cfg.noised_condition_dropout,
         }
+        return {k: v[start:start + b] for k, v in whole.items()}
 
     def _x0_loss(self, dit, latent, cond, t, noise) -> torch.Tensor:
         """The weighted x0 loss of ``dit``'s v prediction at timesteps t."""
@@ -316,10 +342,16 @@ class DiTTrainer:
                   noise: Optional[torch.Tensor] = None,
                   enc_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Held-out loss at t = T/2 for every item, with ``noise`` (default:
-        a draw from the trainer's generator); the DiT runs in f32. Averaged
-        over the ranks' items: a rank without a batch passes None and adds
-        nothing but joins the collective."""
+        a draw from the trainer's generator; under FSDP this rank's rows of
+        the draws of every rank's items pooled); the DiT runs in f32.
+        Averaged over the ranks' items: a rank without a batch passes None
+        and adds nothing but joins the collectives (under FSDP with a DiT
+        forward on one zero item)."""
         stats = torch.zeros(2, dtype=torch.float64, device=self.device)
+        if self.fsdp and (noise is None or enc_noise is None):
+            noise, enc_noise = self._eval_draws(batch, noise, enc_noise)
+        if batch is None and self.fsdp:
+            self._idle_forward()
         if batch is not None:
             latent, cond = self.encode_inputs(batch, enc_noise)
             b = latent.shape[0]
@@ -337,6 +369,36 @@ class DiTTrainer:
                                               device=self.device)])
         total, n = self.mesh.all_reduce_(stats).unbind()
         return (total / n).float()
+
+    def _eval_draws(self, batch, noise, enc_noise):
+        """(noise, enc_noise), each given or else this rank's rows of the
+        draws one process takes on every data index's eval items pooled in
+        order: the posterior noise (when a rank encodes raw inputs), then
+        the latent noise. Every rank calls it alike."""
+        cfg, g, dev = self.cfg, self.generator, self.device
+        b = 0 if batch is None else next(iter(batch.values())).shape[0]
+        raw = batch is not None and not ("latent" in batch and "cond" in batch)
+        shares = dict((d, (n, r)) for d, n, r in self.mesh.gather(
+            (self.mesh.data_index, b, raw)))
+        start = sum(shares[d][0] for d in range(self.mesh.data_index))
+        total = sum(n for n, _ in shares.values())
+        q, c = cfg.uv_query_size, cfg.latent_channels
+        if enc_noise is None and any(r for _, r in shares.values()):
+            enc_noise = torch.randn((total, q, q, c), generator=g,
+                                    device=dev)[start:start + b]
+        if noise is None:
+            noise = torch.randn((total, c, q, q), generator=g,
+                                device=dev)[start:start + b]
+        return noise, enc_noise
+
+    def _idle_forward(self):
+        """One DiT forward on a zero item: a rank without a batch joins the
+        sharded DiT's collectives."""
+        cfg, dev = self.cfg, self.device
+        self.model(torch.zeros((1, cfg.in_channels, cfg.sample_height,
+                                cfg.sample_width), device=dev),
+                   torch.zeros((1, cfg.text_embed_dim, 4, 4), device=dev),
+                   torch.zeros((1,), dtype=torch.long, device=dev))
 
     @torch.no_grad()
     def sample(self, cond_images: torch.Tensor,
@@ -364,7 +426,8 @@ class DiTTrainer:
                     timer=NULL_TIMER) -> Dict[str, float]:
         """Held-out conditioning images -> CFG sampling -> frozen VAE decode
         -> deform -> render against the ground truth: PSNR, and a GT |
-        sample PNG at ``vis_path``. Spans "sampling" and the renderer's."""
+        sample PNG at ``vis_path``. Spans "sampling" and the renderer's.
+        Under FSDP every rank calls it with the same batch."""
         with timer("sampling"):
             latents = self.sample(batch["sapiens_input"], noise=noise,
                                   num_inference_steps=num_inference_steps)
@@ -392,7 +455,7 @@ class DiTTrainer:
         ``ckpt_path`` every ``save_ckpt_steps`` and at the end, and every
         ``eval_every`` steps take the eval loss over up to 4 ``eval_loader``
         batches and, with a ``latent_renderer``, one ``sample_eval`` on
-        rank 0's first (its PNG goes to
+        rank 0's first (on every rank under FSDP; its PNG goes to
         ``<workspace>/dit_sample_<step>.png``). Only rank 0 prints and logs.
         Batches reach the device ``prefetch_to_device`` ahead. Returns the
         last logs."""
@@ -435,7 +498,8 @@ class DiTTrainer:
     def _evaluate(self, eval_loader, logger=None) -> Dict[str, float]:
         """The eval loss over up to 4 eval batches (as many on every rank
         as the longest share has; batch i pools the i-th of every rank)
-        and, on rank 0, one ``sample_eval`` on its first batch."""
+        and one ``sample_eval`` on rank 0's first batch: on rank 0, or
+        under FSDP on every rank (rank 0's batch sent to each)."""
         steps = self.mesh.max_int(min(len(eval_loader), 4))
         losses, first = [], None
         batches = itertools.chain(itertools.islice(eval_loader, steps),
@@ -450,10 +514,14 @@ class DiTTrainer:
         if losses:
             ev["eval_loss"] = float(np.mean(losses))
         lead = self.mesh.rank == 0
-        if lead and self.latent_renderer is not None and first is not None:
+        if self.fsdp:
+            first = self.mesh.broadcast_object(first)
+        if ((lead or self.fsdp) and self.latent_renderer is not None
+                and first is not None):
             ev.update(self.sample_eval(
                 self.to_device(first), vis_path=os.path.join(
-                    self.cfg.workspace, f"dit_sample_{self.step:07d}.png")))
+                    self.cfg.workspace, f"dit_sample_{self.step:07d}.png")
+                if lead else None))
         if ev and lead:
             print(f"[dit] eval @ {self.step}: {ev}", flush=True)
             if logger is not None:
@@ -467,14 +535,21 @@ class DiTTrainer:
         counts, the gradient sums of a partial accumulation (averaged over
         the ranks) and every rank's generator (``torch.save``, written
         atomically). Every rank calls it; rank 0 writes and the others wait
-        for the file."""
+        for the file. A sharded trainer gathers whole tensors: the same
+        file as one process's."""
         grads = checkpoint.partial_grads(self.model.parameters(), self._micro,
                                          self.cfg.gradient_accumulation_steps)
-        state = checkpoint.rank_state(self.mesh, self.generator, grads)
+        if self.fsdp:
+            model_sd, opt_sd, grads = fsdp.full_state_dict(
+                self.model, self.opt, grads)
+            state = checkpoint.rank_state(self.mesh, self.generator)
+        else:
+            model_sd, opt_sd = self.model.state_dict(), self.opt.state_dict()
+            state = checkpoint.rank_state(self.mesh, self.generator, grads)
         if self.mesh.rank == 0:
             checkpoint.save_torch(path, {
-                "model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict(),
+                "model": model_sd,
+                "optimizer": opt_sd,
                 "step": self.step, "updates": self.updates,
                 "micro": self._micro, "grads": grads, **state})
         self.mesh.barrier()
@@ -488,19 +563,27 @@ class DiTTrainer:
         fmt = checkpoint.sniff_format(path)
         if fmt == "torch":
             state = checkpoint.load_torch(path)
-            self.model.load_state_dict(state["model"])
-            self.opt.load_state_dict(state["optimizer"])
+            if self.fsdp:
+                fsdp.load_full_state_dict(self.model, state["model"],
+                                          self.opt, state["optimizer"])
+            else:
+                self.model.load_state_dict(state["model"])
+                self.opt.load_state_dict(state["optimizer"])
             self.step, self.updates = int(state["step"]), int(state["updates"])
             self._micro = int(state["micro"])
             checkpoint.restore_grads_(self.model.parameters(),
                                       state.get("grads"))
             checkpoint.restore_generator_(self.generator, state, self.mesh,
-                                          self.cfg.seed + 5)
+                                          self.cfg.seed + 5, shared=self.fsdp)
             return
         state = checkpoint.read_msgpack(path) if fmt == "msgpack" else None
         if state is None or "step" not in state:
             sd, _ = checkpoint.load_params_any(path, self.model, self.cfg)
-            self.model.load_state_dict(sd)
+            if self.fsdp:
+                fsdp.load_full_state_dict(
+                    self.model, {k: fsdp.full(v) for k, v in sd.items()})
+            else:
+                self.model.load_state_dict(sd)
             return
         # a full train state of the JAX package's DiT trainer: params,
         # opt_state (clip + AdamW over the params), step (micro-steps)

@@ -96,8 +96,8 @@ from sigman_release_torch.models.vae import (
     compose_rotations,
     sample_gaussian_attrs,
 )
+from sigman_release_torch.parallel import fsdp
 from sigman_release_torch.parallel.mesh import (
-    LATER_SLICE,
     Mesh,
     make_mesh,
     prefetch_to_device,
@@ -116,10 +116,16 @@ BATCH_KEYS = ("input", "UV_inital", "images_output", "masks_output",
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """Scale the gradients by max_norm / norm when their global norm
     reaches ``max_norm`` (the JAX package's optimizer rule, no epsilon).
-    Returns the norm before clipping."""
+    Sharded (DTensor) gradients: the norm of the whole gradients, each
+    element counted once (``fsdp.global_norm``), and each rank scales its
+    pieces. Returns the norm before clipping."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if any(fsdp.is_sharded(g) for g in grads):
+        norm = fsdp.global_norm(grads)
+        grads = [fsdp.local(g) for g in grads]
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -239,13 +245,16 @@ class VAETrainer:
                  template: Optional[TemplateAssets] = None, *,
                  device="cuda", mesh: Optional[Mesh] = None):
         """``mesh``: this rank's place in the data-parallel layout (default
-        ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``); with a process group
-        the trainer wraps its modules in DDP."""
+        ``make_mesh(cfg.mesh_shape, cfg.mesh_axes)``; no 'model' axis); with
+        a process group the trainer wraps its modules in DDP. ``cfg.spmd``
+        is not read: FSDP is the DiT trainer's, and the JAX VAE trainer
+        trains data-parallel whatever it says."""
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
-        if cfg.spmd == "fsdp":
-            raise NotImplementedError(f"spmd='fsdp': {LATER_SLICE}")
         self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+        if "model" in self.mesh.axis_names:
+            raise ValueError("the VAE trainer shards over 'data' and 'view' "
+                             "only; its mesh has a 'model' axis")
 
         with torch.device(dev):   # default inits run on the device
             self.vae = VAEModel(cfg).to(dev)

@@ -86,13 +86,17 @@ def test_mesh_layout_matches_jax(i, port_meshes):
 
 
 def test_make_mesh_infers_and_rejects():
-    """One process: -1 takes the world; a 'model' axis names the later
-    slice; a shape that does not cover the world raises."""
+    """One process: -1 takes the world; a 'model' axis is a layout of its
+    own, but not beside 'view', and an unknown axis raises; a shape that
+    does not cover the world raises."""
     m = mesh.make_mesh((-1,), ("data",))
     assert (m.shape, m.coords, m.distributed) == ((1,), (0,), False)
     assert mesh.make_mesh((1, -1), ("data", "view")).shape == (1, 1)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        mesh.make_mesh((1, 1), ("data", "model"))
+    m = mesh.make_mesh((1, -1), ("data", "model"))
+    assert (m.shape, m.model_size, m.model_index) == ((1, 1), 1, 0)
+    for axes in (("data", "view", "model"), ("data", "pipe")):
+        with pytest.raises(ValueError, match="'data' first"):
+            mesh.make_mesh((1,) * len(axes), axes)
     with pytest.raises(ValueError, match="does not cover"):
         mesh.make_mesh((2,), ("data",))
 
