@@ -142,6 +142,28 @@ Phases (any failure exits non-zero before the final line):
              within phase 12's limits. Files under ``build/smoke_fsdp/``,
              removed at the end.
 
+17. knobs     — last: the ``RasterizeConfig`` knobs as K1 / K2 variants
+             and the last features ported, on a fresh ``vae_b`` trainer of
+             phase 7's set-up. Three G steps each at tile 32 with the f32
+             gradient stream, at tile 32 with the bf16 stream and at tile
+             16 (windows widened from ``T16_WINDOWS`` until the overflow is
+             under 1% of the pairs), each from the same weights and draws;
+             then ``fit`` over three steps with ``early_stop`` off and
+             ``profile_dir`` (one trace, naming both kernels) and a
+             ``test_tiny`` DiT ``fit`` likewise; launches counted from 0
+             over these steps, by variant too. Then: (b) the first loss of
+             the bf16 run equal bit for bit, its Gaussian gradients within
+             8e-3 of the f32 run's, K2's bf16 output its f32 output
+             rounded and within one bf16 rounding of its plain version,
+             K2 alone / with the fill / with the regroup both ways; (a)
+             K1 and K2 at tile 16 on the last step's stream against their
+             plain versions with their bounds, K1 at 1 and 2 blocks per
+             16-px tile, and on phase 4's serving scene K1 at tile 16 and
+             its maps against tile 32's (5e-5 + 1e-4 relative, net of the
+             cut share); (c) ``early_stop=False`` bit for bit (K1 serving,
+             K2 training); (e) LPIPS from seeded weight files, card
+             against CPU. Files under ``build/``, removed at the end.
+
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
 the hits plus a staging pass per row; without the cull: every needed
@@ -210,6 +232,9 @@ K1_CUT_RTOL = 1e-3
 # K2 vs plain: max |kernel - plain| per output column over the plain
 # column's max |value| (the columns span many decades)
 K2_TOL = 1e-4
+# K2's bf16 output against the plain version's f32 one, net of one bf16
+# rounding (2^-8 of each value), per column over its max (``k2_bf16_excess``)
+K2_BF16_TOL = K2_TOL
 IMAGE_TOL = 1e-3                # image through the plain version
 SMALL_TOL = 1e-3                # test_tiny path, GPU vs CPU
 # test_tiny G step, GPU vs CPU: loss relative, gradient L2 relative
@@ -311,11 +336,12 @@ class PhaseClock:
             flush=True)
 
 
-def hand_streams(rng, chunk=128):
-    """Two views of 2x2 tiles of 32x32: an empty tile, a segment straddling
-    several chunks from an unaligned start, a saturating stack and a Gaussian
-    centred on a pixel centre; then random segments."""
-    tile = 32
+def hand_streams(rng, chunk=128, tile=32):
+    """Two views of 2x2 tiles of ``tile`` x ``tile``: an empty tile, a
+    segment straddling several chunks from an unaligned start, a saturating
+    stack, a Gaussian centred on a pixel centre and one whose mean sits on
+    a tile edge (at either tile side, also a 16-px one); then random
+    segments."""
     rows, start, count = [np.zeros((5, 16), np.float32)], [], []
 
     def seg(r):
@@ -344,7 +370,10 @@ def hand_streams(rng, chunk=128):
     centred = gaussians(1, tile, tile)
     centred[0, 0:2] = (tile + 5.0, tile + 7.0)
     centred[0, 8] = 0.8
-    seg(np.concatenate([centred, gaussians(5, tile, tile)]))
+    edge = _pair_rows(float(tile), tile + 3.0, 3.0, 2.0, 0.2, 0.7,
+                      np.random.default_rng(7))
+    edge[0, 9] = 3.5                                  # behind the rest
+    seg(np.concatenate([centred, gaussians(5, tile, tile), edge]))
     for t in range(4):
         seg(gaussians(int(rng.integers(1, 2 * chunk)), (t % 2) * tile,
                       (t // 2) * tile))
@@ -373,9 +402,11 @@ def _pair_rows(mx, my, sx, sy, rho, opa, rng):
     return r
 
 
-def cull_cases(rng, chunk=128):
+def cull_cases(rng, chunk=128, tile=32):
     """Hand-made streams for the kernels' per-warp cull and launch
     order, each (pairs, tile_start, tile_count, ntx, tiles_per_view):
+
+    Tiles of ``tile`` x ``tile`` pixels:
 
     * ``staggered_saturation``: one tile; horizontal bands, one per four
       pixel rows with 2-9 copies each in shuffled depth order, so the rows
@@ -388,7 +419,6 @@ def cull_cases(rng, chunk=128):
     * ``longest_first``: one view of 3x2 tiles with segments of 0 to 700
       pairs, longest in the middle of the grid.
     """
-    tile = 32
 
     def small(k, ox=0.0, oy=0.0):
         return _pair_rows(ox + rng.uniform(-4, tile + 4, k),
@@ -409,10 +439,12 @@ def cull_cases(rng, chunk=128):
         return (pairs, np.array(start, np.int32), np.array(count, np.int32),
                 ntx, tpv)
 
-    band_y = np.repeat(4.0 * np.arange(8) + 1.5, np.arange(2, 10))
+    n_bands = tile // 4
+    band_y = np.repeat(4.0 * np.arange(n_bands) + 1.5,
+                       np.arange(2, 2 + n_bands))
     rng.shuffle(band_y)
-    bands = _pair_rows(16.0, band_y, 60.0, 1.2, 0.0, 0.97, rng)
-    wide = _pair_rows(16.0, 16.0, 300.0, 200.0, 0.3, 0.5, rng)
+    bands = _pair_rows(tile / 2, band_y, 60.0, 1.2, 0.0, 0.97, rng)
+    wide = _pair_rows(tile / 2, tile / 2, 300.0, 200.0, 0.3, 0.5, rng)
     narrow = _pair_rows(10.3, 13.6, 0.4, 0.4, 0.0, 0.9, rng)
     lengths = [0, 37, 700, 5, 260, 128]
     return {
@@ -426,10 +458,15 @@ def cull_cases(rng, chunk=128):
     }
 
 
-def k1_bytes(n_pairs, n_tiles):
+def k1_bytes(n_pairs, n_tiles, tile=32):
     """K1's own traffic: live pair rows and the segment arrays read once,
-    the [n, 8, 1024] f32 tile buffers written once."""
-    return n_pairs * K1_ROW_BYTES + 8 * n_tiles + n_tiles * 8 * 1024 * 4
+    the [n, 8, tile^2] f32 tile buffers written once."""
+    return n_pairs * K1_ROW_BYTES + 8 * n_tiles + n_tiles * 8 * tile * tile * 4
+
+
+def k1_kw(kw):
+    """K1's arguments out of K2's (which also take ``out_bf16``)."""
+    return {k: v for k, v in kw.items() if k != "out_bf16"}
 
 
 def hold_k1(pairs, tile_start, tile_count, kw):
@@ -464,7 +501,8 @@ def hold_k1(pairs, tile_start, tile_count, kw):
                                           **kw), reps=20)
     n_pairs = int(tile_count.sum())
     new, old = bounds(work, K1_WORK, K1_STAGE_OPS, n_pairs,
-                      k1_bytes(n_pairs, tile_start.numel()))
+                      k1_bytes(n_pairs, tile_start.numel(),
+                               kw.get("tile", 32)))
     return {"plain": plain, "err": err, "ms": ms, "plain_ms": plain_ms,
             "work": work, "n_pairs": n_pairs, "new": new, "old": old,
             "worst": at}
@@ -473,10 +511,11 @@ def hold_k1(pairs, tile_start, tile_count, kw):
 def hold_k2(args, kw):
     """K2 against its plain version on one backward's inputs (``args``: the
     stream, its segments, K1's tiles, the upstream gradients): the kernel's
-    output, max |kernel - plain| and its per-column relative, the kernel's
-    ms with the wrapper's zero fill (mean of 20), the plain version's ms
-    (one call), its per-class evaluation counts, the rows with a gradient,
-    and both bounds (``bounds``)."""
+    output, max |kernel - plain| and its per-column relative (with
+    ``out_bf16``: also ``k2_bf16_excess``, against the plain version's f32
+    output), the kernel's ms with the wrapper's zero fill (mean of 20), the
+    plain version's ms (one call), its per-class evaluation counts, the
+    rows with a gradient, and both bounds (``bounds``)."""
     import torch
 
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
@@ -485,27 +524,43 @@ def hold_k2(args, kw):
     out = k2.backward_tiles(*args, **kw)
     work = {}
     t0 = time.perf_counter()
-    ref = k2.backward_tiles_plain(*args, work=work, **kw)
+    ref = k2.backward_tiles_plain(*args, work=work, **k1_kw(kw))
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    err, rel = k2_diff(out, ref)
+    err, rel = k2_diff(out.float(), ref)
+    excess = k2_bf16_excess(out, ref) if out.dtype == torch.bfloat16 else rel
     del ref
     ms = cuda_ms(lambda: k2.backward_tiles(*args, **kw), reps=20)
     n_pairs, n_tiles = int(tile_count.sum()), tile_start.numel()
     # rows the kernel must write: those with a nonzero gradient
     n_written = int((out[:, :10] != 0).any(dim=1).sum())
     # the function's own traffic: live pair rows read once, the 10 gradient
-    # columns of the rows with a nonzero gradient written once, forward rows
-    # 0-3, 5 and gradient rows 0-4 of the non-empty tiles (an empty tile
-    # needs none) and the segment arrays read once. The wrapper's zero fill
-    # of the whole [budget, 16] output is not the kernel's work: it is
-    # printed beside the bound, not in it.
-    n_bytes = ((n_pairs + n_written) * K1_ROW_BYTES
-               + int((tile_count > 0).sum()) * 10 * 1024 * 4 + 8 * n_tiles)
+    # columns of the rows with a nonzero gradient written once (2 B a value
+    # in bf16), forward rows 0-3, 5 and gradient rows 0-4 of the non-empty
+    # tiles (an empty tile needs none) and the segment arrays read once. The
+    # wrapper's zero fill of the whole [budget, 16] output is not the
+    # kernel's work: it is printed beside the bound, not in it.
+    px = args[3].shape[-1]                    # pixels of a tile
+    n_bytes = (n_pairs * K1_ROW_BYTES + n_written * 10 * out.element_size()
+               + int((tile_count > 0).sum()) * 10 * px * 4 + 8 * n_tiles)
     new, old = bounds(work, K2_WORK, K2_STAGE_OPS, n_pairs, n_bytes)
-    return {"out": out, "err": err, "rel": rel, "ms": ms,
+    return {"out": out, "err": err, "rel": rel, "excess": excess, "ms": ms,
             "plain_ms": plain_ms, "work": work, "n_pairs": n_pairs,
             "n_written": n_written, "new": new, "old": old}
+
+
+
+def launch_alone_ms(args, kw, buf):
+    """K2's launch alone (no zero fill, uncounted) on one backward's inputs
+    into ``buf`` (zeros, the wrapper's output type): ms, mean of 20."""
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+
+    order = k1.launch_order(args[2])
+    return cuda_ms(lambda: k2.launch(
+        *args[:3], order, *args[3:5], buf, ntx=kw["ntx"],
+        tiles_per_view=kw["tiles_per_view"], tile=kw.get("tile", 32),
+        early_stop=kw.get("early_stop", True)), reps=20)
 
 
 def k1_diff(out, ref):
@@ -553,9 +608,18 @@ def k2_diff(out, ref):
     return d.max().item(), (d.amax(dim=0) / scale).max().item()
 
 
-def grad_tiles(rng, n):
-    """Seeded upstream gradients [n, 8, 1024] (rows 5-7 unused: zero)."""
-    g = rng.normal(size=(n, 8, 1024)).astype(np.float32)
+def k2_bf16_excess(out, ref):
+    """K2's bf16 output against the plain version's f32 one: max over
+    columns of max(|out - ref| - 2^-8 |ref|, 0) (one bf16 rounding to
+    nearest is at most 2^-8 of the value) over the column's max |ref|."""
+    d = ((out.float() - ref).abs() - ref.abs() * 2.0 ** -8).clamp_min(0)
+    scale = ref.abs().amax(dim=0) + 1e-30
+    return (d.amax(dim=0) / scale).max().item()
+
+
+def grad_tiles(rng, n, tile=32):
+    """Seeded upstream gradients [n, 8, tile^2] (rows 5-7 unused: zero)."""
+    g = rng.normal(size=(n, 8, tile * tile)).astype(np.float32)
     g[:, 5:] = 0.0
     return g
 
@@ -755,6 +819,11 @@ def main():
     k1_err, k1_ms, plain_ms = held["err"], held["ms"], held["plain_ms"]
     k1_bound, k1_by = held["new"][:2]
     k1_bound_old = held["old"][0]
+    # phase 17 renders this scene again at tile 16
+    serve = {"pos": pos[0], "cov3d": cov3d[0], "rgb": rgb[0], "opa": opa[0],
+             "cv": cv.to(dev), "cvp": cvp.to(dev), "rc": rc,
+             "n_pairs": held["n_pairs"], "k1_ms": k1_ms, "plain_ms": plain_ms,
+             "k1_bound": k1_bound, "k1_err": k1_err}
     print(f"[plain] main-path stream: {held['n_pairs']} pairs in "
           f"{stream.tile_count.numel()} tiles; evaluations {held['work']}; "
           f"max |kernel - plain| {k1_err:.3e}; image max diff {img_err:.3e}")
@@ -809,6 +878,7 @@ def main():
     data = data_phase(dev, body, template, clock, train["g_step_ms"])
     tmpl = template_phase(dev, clock)
     fsdp = fsdp_phase(dev, clock)
+    knobs = knobs_phase(dev, body, template, clock, serve)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -833,14 +903,17 @@ def main():
         "launches": (launches + train["k1_launches"] + dit["k1_launches"]
                      + ckpt["k1_resume"] + ckpt["k1_eval"]
                      + ddp["forward_tiles"] + sum(data_k1.values())
-                     + sum(tmpl_k1.values()) + fsdp["k1"]["launches"]),
+                     + sum(tmpl_k1.values()) + fsdp["k1"]["launches"]
+                     + knobs["k1_launches"]),
         "launches_by_path": {"serve": launches,
                              "train": train["k1_launches"],
                              "dit_train": dit["k1_launches"],
                              "vae_resume": ckpt["k1_resume"],
                              "vae_eval": ckpt["k1_eval"],
                              "ddp": ddp["forward_tiles"], **data_k1,
-                             **tmpl_k1, "fsdp": fsdp["k1"]["launches"]},
+                             **tmpl_k1, "fsdp": fsdp["k1"]["launches"],
+                             "knobs": knobs["k1_launches"]},
+        "launches_by_variant": knobs["variants"]["k1"],
         "max_abs_err": k1_err,
         "max_abs_diff": k1_err,
         "ms": k1_ms,
@@ -877,6 +950,8 @@ def main():
                  "bound_ms": fsdp["k1"]["bound_ms"],
                  "bound_ms_without_cull": fsdp["k1"]["bound_ms_without_cull"],
                  "max_abs_err": fsdp["k1"]["err"]},
+        "tile16": knobs["k1_tile16"],
+        "early_stop_off": knobs["k1_early_stop_off"],
     }, {
         "name": "backward_tiles",
         "route": "cuda",
@@ -884,12 +959,14 @@ def main():
         "replaces": "sigman_release_tpu/ops/rasterizer/pallas_backward.py:333",
         "launches": (train["k2_launches"] + ckpt["k2_resume"]
                      + ddp["backward_tiles"] + sum(data_k2.values())
-                     + sum(tmpl_k2.values())),
+                     + sum(tmpl_k2.values()) + knobs["k2_launches"]),
         "launches_by_path": {"serve": 0, "train": train["k2_launches"],
                              "dit_train": 0,
                              "vae_resume": ckpt["k2_resume"],
                              "vae_eval": 0, "ddp": ddp["backward_tiles"],
-                             **data_k2, **tmpl_k2, "fsdp": 0},
+                             **data_k2, **tmpl_k2, "fsdp": 0,
+                             "knobs": knobs["k2_launches"]},
+        "launches_by_variant": knobs["variants"]["k2"],
         "max_abs_err": train["k2_err"],
         "max_abs_diff": train["k2_err"],
         "max_col_rel_err": train["k2_rel"],
@@ -914,6 +991,9 @@ def main():
                          tmpl["k2"]["bound_ms_without_cull"],
                      "max_abs_err": tmpl["k2"]["err"],
                      "max_col_rel_err": tmpl["k2"]["rel"]},
+        "tile16": knobs["k2_tile16"],
+        "early_stop_off": knobs["k2_early_stop_off"],
+        "bf16": knobs["k2_bf16"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1098,26 +1178,13 @@ def train_phases(dev, body, template, clock):
         k2_ms, k2_plain_ms, work = held2["ms"], held2["plain_ms"], held2["work"]
         # the launch alone, into a buffer zeroed beforehand: every call
         # writes the same rows with the same values
-        buf = torch.zeros_like(pairs8)
-        order8 = k1.launch_order(tc8)
-        lib2 = k2._library()
-        cu_stream = torch.cuda.current_stream().cuda_stream
-
-        def launch_alone():
-            rc = lib2.backward_tiles_launch(
-                pairs8.data_ptr(), ts8.data_ptr(), tc8.data_ptr(),
-                order8.data_ptr(), a[3].data_ptr(), a[4].data_ptr(),
-                buf.data_ptr(), ts8.numel(), kw["ntx"],
-                kw["tiles_per_view"], cu_stream)
-            if rc:
-                fail(f"backward_tiles_launch failed: cudaError {rc}")
-
-        k2_kernel_ms = cuda_ms(launch_alone, reps=20)
+        buf = torch.zeros_like(out)
+        k2_kernel_ms = launch_alone_ms(a, kw, buf)
         if not torch.equal(buf, out):
             fail("backward_tiles' launch alone differs from the wrapper's")
         n_written = held2["n_written"]
         del out, buf
-        held = hold_k1(pairs8, ts8, tc8, kw)
+        held = hold_k1(pairs8, ts8, tc8, k1_kw(kw))
     k1_err, k1_ms, k1_plain_ms = held["err"], held["ms"], held["plain_ms"]
     k1_new, k1_old = held["new"], held["old"]
     n_pairs, n_tiles = held["n_pairs"], ts8.numel()
@@ -3043,6 +3110,555 @@ def template_phase(dev, clock):
             "k2": {k: held2[k] for k in ("err", "rel", "ms", "plain_ms")}
             | {"bound_ms": held2["new"][0],
                "bound_ms_without_cull": held2["old"][0]}}
+
+
+# ---- phase 17: the RasterizeConfig knobs and the last ported features ----
+# tile-16 windows (max_tiles_per_gaussian, big_win, pair_budget_factor) in
+# 16-px tiles, tried in turn until the overflow is under OVERFLOW_SHARE of
+# the pairs: the renderer's 32-px settings (Config: 36, 12, 12), then wider
+# (the third has the JAX tile_ab.py "t16_w5" proportions to them: base side
+# 5/3, big window 2x, budget 1.6x), then wider still
+T16_WINDOWS = ((36, 12, 12), (64, 16, 16), (100, 24, 20), (144, 24, 24))
+# 32-px windows for the tile-16 / tile-32 image check, which needs no drops
+# at either tile: the renderer's, then wider
+T32_WINDOWS = ((36, 12, 12), (64, 16, 16), (100, 20, 20))
+OVERFLOW_SHARE = 0.01
+# tile 16 against tile 32 (maps net of the cut share): the JAX
+# test_tile16_matches_dense tolerance
+TILE16_ATOL, TILE16_RTOL = 5e-5, 1e-4
+# the bf16 gradient stream's Gaussian gradients against the f32 stream's,
+# normalised by the f32 gradient's max (the JAX test's bound)
+BF16_GRAD_TOL = 8e-3
+LPIPS_FILE_TOL = 1e-4           # LPIPS from files, card against CPU, TF32 off
+KNOB_STEPS = 3
+
+
+def lpips_files(root, net, rng, heads=True):
+    """A torchvision-layout ``vgg16`` / ``alexnet`` feature state dict of
+    seeded N(0, 2 / fan_in) weights and, with ``heads``, richzhang head
+    weights, saved with ``torch.save`` under ``root``; their paths."""
+    import torch
+
+    from sigman_release_torch.losses.lpips import (
+        ALEX_CHANNELS, ALEX_CONVS, ALEX_FEATURES, VGG_CHANNELS, VGG_CONVS,
+        VGG_FEATURES)
+
+    if net == "alex":
+        chans = (3,) + ALEX_CHANNELS
+        convs = [(i, chans[k + 1], chans[k], ALEX_CONVS[k][0])
+                 for k, i in enumerate(ALEX_FEATURES)]
+    else:
+        shapes, cin = [], 3
+        for n, ch in zip(VGG_CONVS, VGG_CHANNELS):
+            shapes += [(ch, cin, 3)] + [(ch, ch, 3)] * (n - 1)
+            cin = ch
+        convs = [(i,) + sh for i, sh in zip(VGG_FEATURES, shapes)]
+    sd = {}
+    for i, co, ci, k in convs:
+        sd[f"features.{i}.weight"] = torch.from_numpy(rng.normal(
+            0, np.sqrt(2.0 / (ci * k * k)), (co, ci, k, k)).astype(np.float32))
+        sd[f"features.{i}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.1, co).astype(np.float32))
+    os.makedirs(root, exist_ok=True)
+    trunk = os.path.join(root, f"{net}_features.pt")
+    torch.save(sd, trunk)
+    if not heads:
+        return trunk, None
+    lin = {f"lin{i}.model.1.weight": torch.from_numpy(
+        rng.uniform(0, 2.0 / c, (1, c, 1, 1)).astype(np.float32))
+        for i, c in enumerate(ALEX_CHANNELS if net == "alex"
+                              else VGG_CHANNELS)}
+    head = os.path.join(root, f"{net}_heads.pt")
+    torch.save(lin, head)
+    return trunk, head
+
+
+def pixel_rows(tiles, V, cfg):
+    """[V*n_tiles, 8, tile^2] tile buffers -> [V, 8, H*W] in image order."""
+    t = tiles.reshape(V, cfg.nty, cfg.ntx, 8, cfg.tile, cfg.tile)
+    t = t.permute(0, 3, 1, 4, 2, 5).reshape(V, 8, cfg.nty * cfg.tile,
+                                            cfg.ntx * cfg.tile)
+    return t[:, :, :cfg.img_h, :cfg.img_w].reshape(V, 8, -1)
+
+
+def windowed(base, windows, tile, prepare):
+    """The first of ``windows`` (in tiles of ``tile``) whose stream
+    (``prepare(cfg)``) drops under OVERFLOW_SHARE of its pairs: (cfg,
+    stream, the share of each window tried)."""
+    tried = []
+    for mtpg, big, budget in windows:
+        cfg = base._replace(tile=tile, max_tiles_per_gaussian=mtpg,
+                            big_win=big, pair_budget_factor=budget)
+        stream = prepare(cfg)
+        share = int(stream.overflow) / max(int(stream.tile_count.sum()), 1)
+        tried.append(((mtpg, big, budget), share))
+        if share < OVERFLOW_SHARE:
+            return cfg, stream, tried
+    fail(f"tile {tile}: overflow {tried} with every window tried")
+
+
+def grad_rel(a, b):
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+
+def knobs_phase(dev, body, template, clock, serve):
+    """Phase 17: the RasterizeConfig knobs as K1 / K2 variants, step
+    tracing and LPIPS weights from files (``serve``: phase 4's serving
+    scene and its K1 numbers). Returns the numbers the kernels line
+    needs."""
+    import shutil
+
+    import torch
+
+    from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.data.dataset import SyntheticAvatarDataset
+    from sigman_release_torch.losses.lpips import LPIPS, load_lpips_params
+    from sigman_release_torch.ops.rasterizer import backward_tiles as k2
+    from sigman_release_torch.ops.rasterizer import forward_tiles as k1
+    from sigman_release_torch.ops.rasterizer import render as render_lib
+    from sigman_release_torch.training import dit_trainer, vae_trainer
+
+    clock.start("knobs")
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "smoke_knobs")
+    trace_dir = os.path.join(ROOT, "build", "smoke_trace")
+    for d in (root, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    cfg = PRESETS[TRAIN_PRESET]
+    trainer, batch = vae_trainer.synthetic_setup(
+        cfg, device=dev, body_model=body, template=template)
+    renderer = trainer.latent_renderer.renderer
+    base = renderer.raster_cfg
+    snap = [p.detach().clone() for p in trainer.params_g]
+    gen_state = trainer.generator.get_state()
+
+    def restore():
+        """The fresh trainer: weights, no AdamW state, the generator."""
+        with torch.no_grad():
+            for p, q in zip(trainer.params_g, snap):
+                p.copy_(q)
+                p.grad = None
+        trainer.opt_g.state.clear()
+        trainer.generator.set_state(gen_state)
+        trainer.step, trainer._micro = 0, {"g": 0, "d": 0}
+
+    # taps on the renderer's calls: the Gaussians' inputs and gradients of
+    # a step's render, K1's and K2's inputs and the stream
+    tap = {}
+    real = (render_lib.prepare_pairs, render_lib.forward_tiles,
+            render_lib.backward_tiles)
+
+    def tapping_prepare(*a):
+        stream = real[0](*a)
+        if "grads" in tap:
+            tap["inputs"] = [x.detach().clone() for x in a[:6]]
+            for i, x in enumerate(a[:4]):
+                x.register_hook(lambda g, i=i: tap["grads"].__setitem__(
+                    i, g.detach().clone()))
+        tap["stream"] = stream
+        return stream
+
+    def tapping(name, fn):
+        def wrapped(*a, **kw):
+            tap[name] = (a, kw)
+            return fn(*a, **kw)
+        return wrapped
+
+    step_ms = []
+    real_step = trainer.train_step_g
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = real_step(*a, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return logs
+
+    def g_steps(name, rcfg):
+        """KNOB_STEPS G steps from the fresh trainer under ``rcfg``: the
+        first step's loss and Gaussian gradients, the last step's K1 / K2
+        inputs and stream, the median of steps 2-3 and the peak."""
+        restore()
+        renderer.raster_cfg = rcfg
+        torch.cuda.reset_peak_memory_stats()
+        step_ms.clear()
+        run = {}
+        for i in range(KNOB_STEPS):
+            tap.clear()
+            if i == 0:
+                tap["grads"] = [None] * 4
+            logs = {k: float(v) for k, v in trainer.train_step_g(batch).items()}
+            if i == 0:
+                run.update(loss=logs["loss"], grads=tap["grads"],
+                           inputs=tap["inputs"])
+            if not all(np.isfinite(v) for v in logs.values()):
+                fail(f"{name}: non-finite G step {i + 1}: {logs}")
+        run.update(k1=tap["k1"], k2=tap["k2"], stream=tap["stream"],
+                   overflow=logs["overflow"], ms=list(step_ms),
+                   med=statistics.median(step_ms[1:]),
+                   peak=torch.cuda.max_memory_allocated() / 2**30)
+        tap.clear()
+        print(f"[knobs] {name}: G steps {fmt(run['ms'], '.1f')} ms (median "
+              f"of 2-{KNOB_STEPS} {run['med']:.1f}), peak {run['peak']:.2f} "
+              f"GiB, first loss {run['loss']!r}, last overflow "
+              f"{run['overflow']:.0f}", flush=True)
+        return run
+
+    render_lib.prepare_pairs = tapping_prepare
+    render_lib.forward_tiles = tapping("k1", real[1])
+    render_lib.backward_tiles = tapping("k2", real[2])
+    trainer.train_step_g = timed_step
+    k1.forward_tiles.launches_by_variant.clear()
+    k2.backward_tiles.launches_by_variant.clear()
+    try:
+        with Counted() as path:
+            runs = {"t32": g_steps("tile 32, f32 stream", base)}
+            g_in = runs["t32"]["inputs"]
+            with torch.no_grad():
+                t16_cfg, _, tried = windowed(
+                    base, T16_WINDOWS, 16,
+                    lambda c: real[0](*g_in, c))
+            print(f"[knobs] tile-16 windows on the G step's Gaussians "
+                  f"(max_tiles_per_gaussian, big_win, pair_budget_factor): "
+                  f"overflow share {tried}; the renderer's 32-px "
+                  f"{(base.max_tiles_per_gaussian, base.big_win, base.pair_budget_factor)}",
+                  flush=True)
+            runs["bf16"] = g_steps("tile 32, bf16 stream",
+                                   base._replace(grad_stream_bf16=True))
+            runs["t16"] = g_steps("tile 16, f32 stream", t16_cfg)
+            # ---- (d) step tracing: fit over 3 steps, the third traced;
+            # early_stop off, so that the path runs that variant too
+            restore()
+            renderer.raster_cfg = base._replace(early_stop=False)
+            item = SyntheticAvatarDataset(cfg, n_items=1, seed=0)[0]
+            host = {k: v[None] for k, v in item.items() if k != "item"}
+            step_ms.clear()
+            trainer.fit([host] * KNOB_STEPS, num_steps=KNOB_STEPS,
+                        profile_dir=trace_dir, profile_every=2)
+            fit_ms = list(step_ms)
+            tiny = PRESETS["test_tiny"]
+            dit, _, _ = dit_trainer.synthetic_setup(
+                tiny, device=dev, n_items=1, body_model=body,
+                template=template)
+            ditem = SyntheticAvatarDataset(tiny, n_items=1, seed=0)[0]
+            dhost = {k: ditem[k][None] for k in dit_trainer.RAW_KEYS}
+            dit_dir = os.path.join(trace_dir, "dit")
+            dit.fit([dhost] * KNOB_STEPS, num_steps=KNOB_STEPS,
+                    profile_dir=dit_dir, profile_every=2)
+            del dit
+    finally:
+        (render_lib.prepare_pairs, render_lib.forward_tiles,
+         render_lib.backward_tiles) = real
+        trainer.train_step_g = real_step
+        renderer.raster_cfg = base
+    variants = {"k1": dict(k1.forward_tiles.launches_by_variant),
+                "k2": dict(k2.backward_tiles.launches_by_variant)}
+    n_g = 3 * KNOB_STEPS + KNOB_STEPS
+    print(f"[knobs] the phase's G steps and fit launched K1 {path.n1}, K2 "
+          f"{path.n2} times; by variant {variants}", flush=True)
+    if path.n1 != n_g or path.n2 != n_g:
+        fail(f"phase 17's steps launched K1 {path.n1}, K2 {path.n2}, not "
+             f"{n_g} each")
+    for kern, name in (("k1", "tile16"), ("k2", "tile16"), ("k2", "bf16"),
+                       ("k1", "early_stop_off"), ("k2", "early_stop_off")):
+        if variants[kern].get(name, 0) < 1:
+            fail(f"phase 17's steps did not launch {kern} {name}")
+
+    # ---- (d) the traces
+    files = sorted(f for f in os.listdir(trace_dir)
+                   if f.endswith(".pt.trace.json"))
+    dit_files = [f for f in os.listdir(dit_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1 or len(dit_files) != 1:
+        fail(f"fit with profile_every 2 over {KNOB_STEPS} steps wrote "
+             f"{files} (VAE) and {dit_files} (DiT), not one trace each")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    device_ms = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel") / 1e3
+    named = {k: [n for n in kernels if k in n][:1]
+             for k in ("forward_tiles_kernel", "backward_tiles_kernel")}
+    trace_mb = os.path.getsize(os.path.join(trace_dir, files[0])) / 1e6
+    print(f"[trace] VAETrainer.fit, {KNOB_STEPS} steps, profile_every 2: "
+          f"{files[0]} ({trace_mb:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} kernels, {device_ms:.1f} ms of kernel time); K1 / "
+          f"K2 named {named}; step ms {fmt(fit_ms, '.1f')} (step 3 traced, "
+          f"step 2 not); DiT test_tiny: {dit_files[0]}", flush=True)
+    if not all(named.values()):
+        fail(f"the trace names no K1 or K2 kernel: {named}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+    # ---- (b) the bf16 gradient stream against the f32 one
+    t32, b16, t16 = runs["t32"], runs["bf16"], runs["t16"]
+    if b16["loss"] != t32["loss"]:
+        fail(f"the bf16 stream's first loss {b16['loss']!r} is not the f32 "
+             f"stream's {t32['loss']!r}")
+    g_rel = [grad_rel(a, b) for a, b in zip(b16["grads"], t32["grads"])]
+    print(f"[bf16] first loss bit for bit {b16['loss']!r}; Gaussian "
+          f"gradients (means3d, cov3d, colors, opacity) against the f32 "
+          f"stream's, max over max: {fmt(g_rel)}", flush=True)
+    if not max(g_rel) <= BF16_GRAD_TOL:
+        fail(f"the bf16 stream's Gaussian gradients differ by {g_rel}")
+    a, kw = b16["k2"]
+    f32kw = k1_kw(kw)
+    stream = b16["stream"]
+    with torch.no_grad():
+        held_b = hold_k2(a, kw)
+        out_b = held_b.pop("out")
+        out_f = k2.backward_tiles(*a, **f32kw)
+        if not torch.equal(out_b, out_f.to(torch.bfloat16)):
+            fail("K2's bf16 output is not its f32 output rounded")
+        n_src = stream.src.shape[0]
+        times = {}
+        for name, o, kwx in (("f32", out_f, f32kw), ("bf16", out_b, kw)):
+            buf = torch.zeros_like(o)
+            times[name] = (
+                launch_alone_ms(a, kwx, buf),
+                cuda_ms(lambda: k2.backward_tiles(*a, **kwx), reps=20),
+                cuda_ms(lambda: render_lib.regroup(
+                    k2.backward_tiles(*a, **kwx), stream.slots, stream.rows,
+                    n_src), reps=20))
+            del buf
+        d_f = render_lib.regroup(out_f, stream.slots, stream.rows, n_src)
+        d_b = render_lib.regroup(out_b, stream.slots, stream.rows, n_src)
+        regroup_rel = grad_rel(d_b, d_f)
+        # (c) early_stop off: K2 on the G stream against its plain version
+        # (also without early_stop) and bit for bit against early_stop on
+        held_off2 = hold_k2(a, {**f32kw, "early_stop": False})
+        off = held_off2.pop("out")
+        k2_off_equal = torch.equal(off, out_f)
+        # tile 32 on the same stream: K1's time, both kernels' bounds from
+        # the plain version's counts (the backward's are the forward's; the
+        # counts do not depend on early_stop, so held_off2's bound is the
+        # f32 K2's)
+        pairs_b, ts_b, tc_b = a[:3]
+        k1_32_ms = cuda_ms(lambda: k1.forward_tiles(pairs_b, ts_b, tc_b,
+                                                    **k1_kw(f32kw)), reps=20)
+        n_b = int(tc_b.sum())
+        k1_32_new = bounds(held_b["work"], K1_WORK, K1_STAGE_OPS, n_b,
+                           k1_bytes(n_b, ts_b.numel()))[0]
+        k2_32_new = held_off2["new"]
+    budget = pairs_b.shape[0]
+    for name, (alone, fill, regr) in times.items():
+        el = 2 if name == "bf16" else 4
+        print(f"[bf16] K2 {name} stream on step 3's stream ({n_b} pairs, "
+              f"budget {budget}): alone {alone:.4f} ms, with the zero fill "
+              f"{fill:.4f} ms, with the regroup {regr:.4f} ms; writes "
+              f"{held_b['n_written'] * 10 * el} B of rows into a "
+              f"{budget * 16 * el} B zero-filled output", flush=True)
+    print(f"[bf16] K2 bf16 against its plain version (f32, net of one bf16 "
+          f"rounding) {held_b['excess']:.3e} per column, plain "
+          f"{held_b['plain_ms']:.1f} ms, {bound_text(times['bf16'][0], held_b['new'], held_b['old'])}; "
+          f"regrouped Gaussian rows against the f32 stream's "
+          f"{regroup_rel:.3e}", flush=True)
+    if not held_b["excess"] <= K2_BF16_TOL:
+        fail(f"K2's bf16 output is {held_b['excess']} off its plain version")
+    print(f"[early_stop] K2 on the G stream: off {held_off2['ms']:.4f} ms "
+          f"against on {times['f32'][1]:.4f} ms (with the fill), equal bit "
+          f"for bit {k2_off_equal}; off against its plain version (also "
+          f"off): per-column relative {held_off2['rel']:.3e}, plain "
+          f"{held_off2['plain_ms']:.1f} ms, "
+          f"{bound_text(held_off2['ms'], held_off2['new'], held_off2['old'])}",
+          flush=True)
+    if not held_off2["rel"] <= K2_TOL:
+        fail(f"K2 with early_stop=False is {held_off2['rel']} off its plain "
+             f"version")
+    if not k2_off_equal:
+        fail("K2 with early_stop=False differs from early_stop=True")
+    del out_b, out_f, off, d_f, d_b
+
+    # ---- (a) tile 16 on the G stream: K1 and K2 against their plain versions
+    a16, kw16 = t16["k2"]
+    with torch.no_grad():
+        held16_2 = hold_k2(a16, kw16)
+        del held16_2["out"]
+        held16_1 = hold_k1(*a16[:3], k1_kw(kw16))
+    n16 = held16_1["n_pairs"]
+    print(f"[tile16] G stream at tile 16: {n16} pairs in {a16[1].numel()} "
+          f"tiles (tile 32: {n_b} in {ts_b.numel()}); last step's overflow "
+          f"{t16['overflow']:.0f} (tile 32: {t32['overflow']:.0f}); "
+          f"{stream_text(a16[2], held16_2['work'])}")
+    print(f"[tile16] K1 {held16_1['ms']:.4f} ms (tile 32 {k1_32_ms:.4f}), "
+          f"plain {held16_1['plain_ms']:.1f} ms, max |kernel - plain| "
+          f"{held16_1['err']:.3e}; "
+          f"{bound_text(held16_1['ms'], held16_1['new'], held16_1['old'])}; "
+          f"tile 32 bound {k1_32_new[0]:.4f} ms ({k1_32_new[1]})")
+    print(f"[tile16] K2 with the fill {held16_2['ms']:.4f} ms (tile 32 "
+          f"{times['f32'][1]:.4f}), plain {held16_2['plain_ms']:.1f} ms, "
+          f"per-column relative {held16_2['rel']:.3e}; "
+          f"{bound_text(held16_2['ms'], held16_2['new'], held16_2['old'])}; "
+          f"tile 32 bound {k2_32_new[0]:.4f} ms ({k2_32_new[1]})")
+    print(f"[tile16] G step median of 2-{KNOB_STEPS}: tile 16 "
+          f"{t16['med']:.1f} ms, peak {t16['peak']:.2f} GiB; tile 32 "
+          f"{t32['med']:.1f} ms, peak {t32['peak']:.2f} GiB; bf16 stream "
+          f"{b16['med']:.1f} ms, peak {b16['peak']:.2f} GiB", flush=True)
+    if not held16_1["err"] <= K1_TOL or not held16_2["rel"] <= K2_TOL:
+        fail(f"tile 16 on the G stream: K1 {held16_1['err']}, K2 "
+             f"{held16_2['rel']} off their plain versions")
+    del runs, t32, b16, t16, a, a16, stream, pairs_b
+
+    # ---- (a) tile 16 on the serving stream; (c) K1 with early_stop off
+    sv = serve
+    scene = (sv["pos"], sv["cov3d"], sv["rgb"], sv["opa"], sv["cv"], sv["cvp"])
+    with torch.no_grad():
+        s16_cfg, s16, tried16 = windowed(
+            sv["rc"], T16_WINDOWS, 16,
+            lambda c: render_lib.prepare_pairs(*scene, c))
+        kw_s16 = dict(ntx=s16_cfg.ntx, tiles_per_view=s16_cfg.n_tiles,
+                      chunk=s16_cfg.chunk, tile=16)
+        held_s16 = hold_k1(s16.pairs, s16.tile_start, s16.tile_count, kw_s16)
+        # tile 32 at windows with no drops at either tile, for the maps
+        for i, win in enumerate(T32_WINDOWS):
+            c32 = sv["rc"]._replace(max_tiles_per_gaussian=win[0],
+                                    big_win=win[1], pair_budget_factor=win[2])
+            c16 = s16_cfg if i == 0 else s16_cfg._replace(
+                max_tiles_per_gaussian=T16_WINDOWS[-1][0],
+                big_win=T16_WINDOWS[-1][1],
+                pair_budget_factor=T16_WINDOWS[-1][2])
+            st32 = render_lib.prepare_pairs(*scene, c32)
+            st16 = s16 if i == 0 else render_lib.prepare_pairs(*scene, c16)
+            drops = (int(st32.overflow), int(st16.overflow))
+            if drops == (0, 0):
+                break
+        else:
+            fail(f"the serving stream drops pairs at every window: {drops}")
+        kw32 = dict(ntx=c32.ntx, tiles_per_view=c32.n_tiles, chunk=c32.chunk)
+        on = k1.forward_tiles(st32.pairs, st32.tile_start, st32.tile_count,
+                              **kw32)
+        m32 = pixel_rows(on, N_VIEWS, c32)
+        m16 = pixel_rows(k1.forward_tiles(
+            st16.pairs, st16.tile_start, st16.tile_count, ntx=c16.ntx,
+            tiles_per_view=c16.n_tiles, chunk=c16.chunk, tile=16),
+            N_VIEWS, c16)
+        share = k1_cut_share(m16, m32, st32.pairs)
+        d = (m16[:, :5] - m32[:, :5]).abs()
+        over = (d - share - TILE16_ATOL - TILE16_RTOL * m32[:, :5].abs())
+        maps_err = over.clamp_min(0).max().item()
+        img_diff = d[:, :3].max().item()
+        del on
+        # (c) early_stop off: K1 on phase 4's serving stream (the renderer's
+        # windows) against its plain version (also without early_stop) and
+        # bit for bit against early_stop on
+        rc = sv["rc"]
+        ss = render_lib.prepare_pairs(*scene, rc)
+        kw_s = dict(ntx=rc.ntx, tiles_per_view=rc.n_tiles, chunk=rc.chunk)
+        held_off1 = hold_k1(ss.pairs, ss.tile_start, ss.tile_count,
+                            {**kw_s, "early_stop": False})
+        on = k1.forward_tiles(ss.pairs, ss.tile_start, ss.tile_count, **kw_s)
+        off = k1.forward_tiles(ss.pairs, ss.tile_start, ss.tile_count,
+                               early_stop=False, **kw_s)
+        k1_off_equal = torch.equal(on, off)
+        k1_on_ms = cuda_ms(lambda: k1.forward_tiles(
+            ss.pairs, ss.tile_start, ss.tile_count, **kw_s), reps=20)
+    print(f"[tile16] serving stream: windows tried {tried16}; "
+          f"{int(s16.tile_count.sum())} pairs at tile 16 (tile 32: "
+          f"{sv['n_pairs']}); K1 {held_s16['ms']:.4f} ms (tile 32 "
+          f"{sv['k1_ms']:.4f}), plain {held_s16['plain_ms']:.1f} ms, max "
+          f"|kernel - plain| {held_s16['err']:.3e}; "
+          f"{bound_text(held_s16['ms'], held_s16['new'], held_s16['old'])}; "
+          f"tile 32 bound {sv['k1_bound']:.4f} ms")
+    print(f"[tile16] tile 16 against tile 32 on the serving scene (windows "
+          f"{(c16.max_tiles_per_gaussian, c16.big_win)} / "
+          f"{(c32.max_tiles_per_gaussian, c32.big_win)}, no drops): rgb max "
+          f"diff {img_diff:.3e}, past {TILE16_ATOL} + {TILE16_RTOL} rel net "
+          f"of the cut share {maps_err:.3e} ({int((share[:, 4] > 0).sum())} "
+          f"pixels at the cut)", flush=True)
+    print(f"[early_stop] K1 on the serving stream ({held_off1['n_pairs']} "
+          f"pairs; phase 4: {sv['n_pairs']}): off {held_off1['ms']:.4f} ms "
+          f"against on {k1_on_ms:.4f} ms, equal bit for bit {k1_off_equal}; "
+          f"off against its plain version (also off) "
+          f"{held_off1['err']:.3e}, plain {held_off1['plain_ms']:.1f} ms, "
+          f"{bound_text(held_off1['ms'], held_off1['new'], held_off1['old'])}",
+          flush=True)
+    if not held_off1["err"] <= K1_TOL:
+        fail(f"K1 with early_stop=False is {held_off1['err']} off its plain "
+             f"version on the serving stream")
+    if not held_s16["err"] <= K1_TOL:
+        fail(f"K1 at tile 16 is {held_s16['err']} off its plain version on "
+             f"the serving stream")
+    if not maps_err == 0:
+        fail(f"tile 16 renders the serving scene {maps_err} past the tile-32 "
+             f"maps' tolerance")
+    if not k1_off_equal:
+        fail("K1 with early_stop=False differs from early_stop=True")
+    del s16, st16, st32, ss, on, off, m16, m32, share, d, over, trainer, batch
+    torch.cuda.empty_cache()
+
+    # ---- (e) LPIPS from files, on the card and on the CPU
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(
+        np.float32))
+    y = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 64, 64)).astype(
+        np.float32))
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    lp = {}
+    try:
+        for net in ("vgg", "alex"):
+            trunk, head = lpips_files(root, net, rng)
+            sd = load_lpips_params(trunk, head, net=net)
+            outs = []
+            for where in (dev, torch.device("cpu")):
+                m = LPIPS(net).to(where)
+                m.load_state_dict(sd)
+                with torch.no_grad():
+                    outs.append(m(x.to(where), y.to(where)).cpu())
+            lp[net] = ((outs[0] - outs[1]).abs().max().item(),
+                       outs[1].tolist())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[lpips] from files (features + heads), card against CPU, TF32 "
+          f"off: {lp}", flush=True)
+    if not all(e <= LPIPS_FILE_TOL for e, _ in lp.values()):
+        fail(f"LPIPS from files differs between the card and the CPU: {lp}")
+    wall = time.perf_counter() - t_phase
+    print(f"[knobs] phase 17 in {wall:.1f} s", flush=True)
+    return {"k1_launches": path.n1, "k2_launches": path.n2,
+            "variants": variants,
+            "k1_tile16": {"ms": held16_1["ms"],
+                          "plain_ms": held16_1["plain_ms"],
+                          "bound_ms": held16_1["new"][0],
+                          "bound_by": held16_1["new"][1],
+                          "max_abs_err": held16_1["err"],
+                          "serve": {"ms": held_s16["ms"],
+                                    "plain_ms": held_s16["plain_ms"],
+                                    "bound_ms": held_s16["new"][0],
+                                    "max_abs_err": held_s16["err"]}},
+            "k1_early_stop_off": {"ms": held_off1["ms"], "on_ms": k1_on_ms,
+                                  "plain_ms": held_off1["plain_ms"],
+                                  "bound_ms": held_off1["new"][0],
+                                  "bound_by": held_off1["new"][1],
+                                  "max_abs_err": held_off1["err"],
+                                  "equal_to_early_stop_on": k1_off_equal},
+            "k2_tile16": {"ms": held16_2["ms"],
+                          "plain_ms": held16_2["plain_ms"],
+                          "bound_ms": held16_2["new"][0],
+                          "bound_by": held16_2["new"][1],
+                          "max_abs_err": held16_2["err"],
+                          "max_col_rel_err": held16_2["rel"]},
+            "k2_early_stop_off": {"ms": held_off2["ms"],
+                                  "on_ms": times["f32"][1],
+                                  "plain_ms": held_off2["plain_ms"],
+                                  "bound_ms": held_off2["new"][0],
+                                  "bound_by": held_off2["new"][1],
+                                  "max_abs_err": held_off2["err"],
+                                  "max_col_rel_err": held_off2["rel"],
+                                  "equal_to_early_stop_on": k2_off_equal},
+            "k2_bf16": {"ms": times["bf16"][1],
+                        "kernel_only_ms": times["bf16"][0],
+                        "with_regroup_ms": times["bf16"][2],
+                        "f32_ms": times["f32"][1],
+                        "f32_kernel_only_ms": times["f32"][0],
+                        "f32_with_regroup_ms": times["f32"][2],
+                        "plain_ms": held_b["plain_ms"],
+                        "bound_ms": held_b["new"][0],
+                        "bound_by": held_b["new"][1],
+                        "max_abs_err": held_b["err"],
+                        "max_col_excess": held_b["excess"]},
+            "wall_s": wall}
 
 
 def fmt(values, spec=".3e"):

@@ -149,7 +149,7 @@ class Config:
     # default) or "fsdp" (GSPMD with params+optimizer sharded over 'data' —
     # DiT only; the renderer graph must stay under shard_map)
     spmd: str = "shard_map"
-    profile_dir: str = ""           # xprof trace dir (trace every profile_every)
+    profile_dir: str = ""           # torch.profiler traces (every profile_every)
     profile_every: int = 500
 
     @property

@@ -8,10 +8,13 @@ layers. Inputs are in [-1, 1] and are normalised with the LPIPS shift/scale
 constants. No converted weights are in the repository, so the backbone is
 seeded-random (as the JAX package without a checkpoint) and the heads start
 at 1/C, which keeps the distance nonnegative and zero only for equal
-inputs.
+inputs; ``load_lpips_params`` reads a torchvision trunk and the richzhang
+heads from files.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,6 +26,10 @@ VGG_CONVS = (2, 2, 3, 3, 3)        # convs per slice
 ALEX_CHANNELS = (64, 192, 384, 256, 256)
 # (kernel, stride, padding) of AlexNet's five convs, one per slice
 ALEX_CONVS = ((11, 4, 2), (5, 1, 2), (3, 1, 1), (3, 1, 1), (3, 1, 1))
+# the convs' indices in torchvision's ``vgg16().features`` /
+# ``alexnet().features``
+VGG_FEATURES = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+ALEX_FEATURES = (0, 3, 6, 8, 10)
 
 SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 SCALE = np.array([0.458, 0.448, 0.450], np.float32)
@@ -118,3 +125,37 @@ class LPIPS(nn.Module):
             b = b / torch.sqrt(torch.sum(b * b, dim=1, keepdim=True) + 1e-10)
             total = total + torch.mean(lin((a - b) ** 2), dim=(1, 2, 3))
         return total
+
+
+def load_lpips_params(backbone_path: Optional[str] = None,
+                      lin_path: Optional[str] = None,
+                      net: str = "vgg") -> Optional[Dict[str, torch.Tensor]]:
+    """A state dict for ``LPIPS(net)`` from a torchvision ``vgg16`` /
+    ``alexnet`` state dict (``features.{i}.weight`` / ``.bias``) and the
+    richzhang heads (``lin{i}.model.1.weight``), or None without
+    ``backbone_path`` (the caller keeps its seeded weights). Without
+    ``lin_path`` every head is 1/C. Port of the JAX package's
+    ``load_lpips_params``; the files are read with ``weights_only``."""
+    if not backbone_path:
+        return None
+    if net not in ("vgg", "alex"):
+        raise ValueError(f"LPIPS net {net!r}: 'vgg' or 'alex'")
+    sd = torch.load(backbone_path, map_location="cpu", weights_only=True)
+    if net == "alex":
+        names = [f"conv{i}" for i in range(len(ALEX_CONVS))]
+        idx, chns = ALEX_FEATURES, ALEX_CHANNELS
+    else:
+        names = [f"conv{bi}_{ci}" for bi, n in enumerate(VGG_CONVS)
+                 for ci in range(n)]
+        idx, chns = VGG_FEATURES, VGG_CHANNELS
+    out = {}
+    for name, i in zip(names, idx):
+        out[f"{net}.{name}.weight"] = sd[f"features.{i}.weight"]
+        out[f"{net}.{name}.bias"] = sd[f"features.{i}.bias"]
+    lin_sd = (torch.load(lin_path, map_location="cpu", weights_only=True)
+              if lin_path else None)
+    for i, c in enumerate(chns):
+        out[f"lins.{i}.weight"] = (
+            lin_sd[f"lin{i}.model.1.weight"] if lin_sd is not None
+            else torch.full((1, c, 1, 1), 1.0 / c))
+    return out

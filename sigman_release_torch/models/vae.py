@@ -349,6 +349,14 @@ class DiagonalGaussian(NamedTuple):
         return 0.5 * torch.sum(self.mean ** 2 + var - 1.0 - self.logvar,
                                dim=tuple(range(1, self.mean.ndim)))
 
+    def nll(self, sample: torch.Tensor) -> torch.Tensor:
+        """Negative log-likelihood of ``sample`` under the posterior, summed
+        over all but the batch axis."""
+        var = torch.exp(self.logvar)
+        return 0.5 * torch.sum(
+            math.log(2 * math.pi) + self.logvar + (sample - self.mean) ** 2
+            / var, dim=tuple(range(1, self.mean.ndim)))
+
 
 def sincos_table(n_pos: int, dim: int) -> np.ndarray:
     """Classic transformer sinusoid table [n_pos, dim]."""

@@ -12,9 +12,14 @@ and ``place_pairs``):
    ellipse's minimum over the tile's pixel rectangle must reach the 1/255
    alpha floor),
 3. every surviving candidate carries one key
-   ``(view*n_tiles + tile) << db | depth_bits`` (the top ``db`` bits of the
-   positive f32 depth). Keys are sorted as int64 — the JAX package sorts
-   uint32 — so the all-ones invalid key ``0xFFFFFFFF`` stays the largest,
+   ``(view*n_tiles + tile) << 32 | depth_bits``, all 31 bits of its
+   positive f32 depth. The JAX package sorts uint32 keys and keeps only the
+   top ``32 - ceil(log2(tiles))`` depth bits, so near-equal depths tie and
+   fall back to Gaussian order, and where they tie depends on the tile
+   count: a 16-px tile keeps two bits fewer than a 32-px one and the two
+   images differ by whole swaps of overlapping Gaussians. The port sorts
+   int64 keys, so it keeps every bit, and the invalid key ``INVALID``
+   (int64's largest) stays above every valid one,
 4. segment starts per (view, tile) come from one ``searchsorted``,
 5. the dense ``[budget, 16]`` pair stream keeps one global prefix (one view)
    or V fixed chunk-aligned per-view regions, with the JAX package's
@@ -37,10 +42,20 @@ from sigman_release_torch.ops.rasterizer.preprocess import ProjectedGaussians
 # pair feature row layout (16 f32 lanes, last 6 padding)
 F_MX, F_MY, F_CA, F_CB, F_CC, F_R, F_G, F_B, F_OPA, F_DEPTH = range(10)
 PAIR_FEATS = 16
-# pixel tile side: one (view, tile) is one program of forward_tiles
+# default pixel tile side: one (view, tile) is one program of
+# forward_tiles; the kernels take 16 or 32 (``RasterizeConfig.tile``)
 TILE = 32
+TILES = (16, 32)
 
-INVALID = 0xFFFFFFFF
+INVALID = torch.iinfo(torch.int64).max
+DEPTH_BITS = 32
+
+
+def check_tile(tile: int) -> int:
+    """``tile`` if the kernels have an instantiation for it, else raise."""
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile}")
+    return tile
 
 # compositing alpha floor (renderCUDA's 1/255 cut) — also the exact-cull rule:
 # a (gaussian, tile) pair whose max alpha over the tile is below the floor
@@ -50,19 +65,19 @@ ALPHA_MIN = 1.0 / 255.0
 _EXACT_MARGIN = 1e-2
 
 
-def _rect_min_q(mx, my, ca, cb, cc, tx, ty):
+def _rect_min_q(mx, my, ca, cb, cc, tx, ty, tile_size):
     """Exact min of the conic quadratic q(d) = d^T C d over a tile's pixel
-    rectangle (pixel centers [t*TILE, t*TILE + TILE-1]); d = pixel - mean.
+    rectangle (pixel centers [t*tile, t*tile + tile-1]); d = pixel - mean.
 
     0 when the mean lies inside the rect, otherwise the min over the 4
     edges, each a 1-D quadratic with a clampable closed-form argmin.
     """
-    txf = tx.to(torch.float32) * TILE
-    tyf = ty.to(torch.float32) * TILE
+    txf = tx.to(torch.float32) * tile_size
+    tyf = ty.to(torch.float32) * tile_size
     rx0 = txf - mx
-    rx1 = rx0 + (TILE - 1.0)
+    rx1 = rx0 + (tile_size - 1.0)
     ry0 = tyf - my
-    ry1 = ry0 + (TILE - 1.0)
+    ry1 = ry0 + (tile_size - 1.0)
 
     cas = torch.clamp(ca, min=1e-12)
     ccs = torch.clamp(cc, min=1e-12)
@@ -105,18 +120,21 @@ class TileBinning(NamedTuple):
     dims: tuple
 
 
-def place_pairs(feats16, feats_big, valid_prefix, pay_prefix, dims):
-    """Gather dense-slot pair rows into the [budget, 16] stream.
+def place_pairs(src, valid_prefix, pay_prefix, dims):
+    """Place the pair rows ``src = cat([feats16, feats_big])`` into the dense
+    [budget, 16] stream; empty / clipped slots hold zeros. Returns (pairs,
+    slots, rows): the stream, with no autograd history, the stream rows
+    that hold a real pair and, for each, its row of ``src``.
 
-    Each slot's candidate index encodes its feats row by construction
+    Each slot's candidate index encodes its ``src`` row by construction
     (A-window: ``pay // a_slots``; B-window: ``V*N + (pay - c_a) // b_slots``
-    into the appended pool copy); empty / clipped slots hold zeros.
-
-    Only the live slots are gathered. The gather's VJP is the pair ->
-    Gaussian scatter-add (autograd's sorted ``index_put`` accumulate); had
-    the empty slots gathered one shared zero row, that row would take ~90%
-    of the budget's indices as duplicates, which the accumulate adds one
-    after another (3.2 s of a 4.0 s ``vae_b`` step on an H100, PERF.md).
+    into the appended pool copy). Only the live slots are gathered; the
+    renderer's ``render.Composite`` carries the gradient back through them
+    (``render.regroup``), so that its backward can keep the gradient stream
+    in bf16 and sum only the live rows. Had the empty slots gathered one
+    shared zero row, its scatter-add would take ~90% of the budget's
+    indices as duplicates, which an accumulate adds one after another (3.2
+    s of a 4.0 s ``vae_b`` step on an H100, PERF.md).
     """
     v, n, k_big, a_slots, b_slots, budget, vb = dims
     c_a = v * n * a_slots
@@ -124,9 +142,8 @@ def place_pairs(feats16, feats_big, valid_prefix, pay_prefix, dims):
     pay = pay_prefix[slots]
     rows = torch.where(pay < c_a, pay // a_slots,
                        v * n + (pay - c_a) // b_slots)
-    src = torch.cat([feats16, feats_big])
-    out = feats16.new_zeros((budget, feats16.shape[1]))
-    return out.index_put((slots,), src[rows])
+    pairs = src.new_zeros((budget, src.shape[1]))
+    return pairs.index_put((slots,), src.detach()[rows]), slots, rows
 
 
 def bin_gaussians(
@@ -142,10 +159,13 @@ def bin_gaussians(
     big_frac: int = 32,
     exact_radius: bool = True,
     per_view_budget: bool = False,
+    tile_size: int = TILE,
 ) -> TileBinning:
     """``per_view_budget``: split ``pair_budget`` into V fixed chunk-aligned
     regions of the dense stream (one per view) instead of one global prefix;
-    a view needing more than its region is clipped and counted."""
+    a view needing more than its region is clipped and counted.
+    ``tile_size``: the pixel tile side (16 or 32); the windows
+    ``max_tiles_per_gaussian`` and ``big_win`` count tiles of that side."""
     if proj.mean2d.ndim != 3:
         raise ValueError("bin_gaussians wants view-batched projections")
     # gradients reach only the pair rows (feats16); spans, culling and sort
@@ -156,14 +176,12 @@ def bin_gaussians(
     dev = proj.mean2d.device
     i32, i64 = torch.int32, torch.int64
     v_views, n = proj.mean2d.shape[:2]
-    ntx = -(-img_w // TILE)
-    nty = -(-img_h // TILE)
+    check_tile(tile_size)
+    ntx = -(-img_w // tile_size)
+    nty = -(-img_h // tile_size)
     n_tiles = ntx * nty
     total_tiles = v_views * n_tiles
-    tb = max(1, math.ceil(math.log2(total_tiles)))
-    db = 32 - tb                              # depth bits below the tile id
-    if db < 16:
-        raise ValueError("too many (view, tile) programs for a 32-bit key")
+    db = DEPTH_BITS                           # depth bits below the tile id
     win = math.isqrt(max_tiles_per_gaussian)
     if win * win != max_tiles_per_gaussian or big_win < win:
         raise ValueError("window must be square and big_win >= its side")
@@ -199,10 +217,14 @@ def bin_gaussians(
                            * (1.0 / 3.0))
 
     # ---- tile spans ----------------------------------------------------------
-    x0 = torch.clamp(torch.floor((mean_x - radius) / TILE), 0, ntx).to(i64)
-    y0 = torch.clamp(torch.floor((mean_y - radius) / TILE), 0, nty).to(i64)
-    x1 = torch.clamp(torch.floor((mean_x + radius) / TILE) + 1, 0, ntx).to(i64)
-    y1 = torch.clamp(torch.floor((mean_y + radius) / TILE) + 1, 0, nty).to(i64)
+    x0 = torch.clamp(torch.floor((mean_x - radius) / tile_size), 0,
+                     ntx).to(i64)
+    y0 = torch.clamp(torch.floor((mean_y - radius) / tile_size), 0,
+                     nty).to(i64)
+    x1 = torch.clamp(torch.floor((mean_x + radius) / tile_size) + 1, 0,
+                     ntx).to(i64)
+    y1 = torch.clamp(torch.floor((mean_y + radius) / tile_size) + 1, 0,
+                     nty).to(i64)
     x1a = torch.minimum(x1, x0 + win)
     y1a = torch.minimum(y1, y0 + win)
     span = torch.where(valid, (x1 - x0) * (y1 - y0), 0)
@@ -211,8 +233,7 @@ def bin_gaussians(
 
     # depth > 0.2 for every valid gaussian, so its int32 bit pattern is a
     # positive int whose order matches the float order
-    depth_bits = (proj.depth.to(torch.float32).contiguous().view(i32).to(i64)
-                  >> (32 - db))
+    depth_bits = proj.depth.to(torch.float32).contiguous().view(i32).to(i64)
     view_ids = torch.arange(v_views, dtype=i64, device=dev)
 
     q_thresh = qt_raw + _EXACT_MARGIN
@@ -228,7 +249,7 @@ def bin_gaussians(
                    & valid[..., None])
     qmin_a = _rect_min_q(mean_x[..., None], mean_y[..., None],
                          ca_f[..., None], cb_f[..., None], cc_f[..., None],
-                         tx, ty)
+                         tx, ty, tile_size)
     cand_ok_a = cand_bbox_a & (qmin_a <= q_thresh[..., None])
     tile_id = view_ids[:, None, None] * n_tiles + ty * ntx + tx
     keys_a = torch.where(cand_ok_a, (tile_id << db) | depth_bits[..., None],
@@ -265,7 +286,7 @@ def bin_gaussians(
                    & ~((lxb < win) & (lyb < win)))
     qmin_b = _rect_min_q(mxb[..., None], myb[..., None],
                          cab[..., None], cbb[..., None], ccb[..., None],
-                         txb, tyb)
+                         txb, tyb, tile_size)
     cand_ok_b = cand_bbox_b & (qmin_b <= q_thresh_b[..., None])
     tile_id_b = view_ids[:, None, None] * n_tiles + tyb * ntx + txb
     keys_b = torch.where(cand_ok_b,

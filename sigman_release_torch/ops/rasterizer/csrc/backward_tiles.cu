@@ -1,5 +1,5 @@
-// backward_tiles: analytic VJP of forward_tiles, one 1024-thread block per
-// (view, 32x32 tile), one pixel a thread.
+// backward_tiles: analytic VJP of forward_tiles, one block per (view, tile)
+// of T x T pixels (T = 32: 1024 threads; T = 16: 256), one pixel a thread.
 //
 // Replaces the Pallas TPU kernel
 // ops/rasterizer/pallas_backward.py::backward_tiles of the JAX package
@@ -8,8 +8,8 @@
 // What it computes, over the tile's pair segment
 // [tile_start, tile_start + tile_count) of the row-major [budget, 16] f32
 // pair stream (row layout as forward_tiles.cu), given the forward tile
-// buffers fwd [n, 8, 1024] (rgb, depth, 1 - Tr, Tr, 0, 0) and the upstream
-// gradients grad [n, 8, 1024] (of rgb, depth and 1 - Tr in rows 0-4):
+// buffers fwd [n, 8, T^2] (rgb, depth, 1 - Tr, Tr, 0, 0) and the upstream
+// gradients grad [n, 8, T^2] (of rgb, depth and 1 - Tr in rows 0-4):
 //   per pixel  TOT = g_rgb . rgb_out + g_d depth_out - g_alpha Tr
 //   front to back, replaying forward_tiles' alpha and transmittance,
 //     u = g_rgb . c + g_d depth,  w = alpha T_excl (0 past the T floor),
@@ -23,7 +23,11 @@
 //   d(mean x) = -(a Sx + b Sy), d(mean y) = -(c Sy + b Sx),
 //   d(a, b, c) = -(Sxx / 2, Sxy, Syy / 2), d(opacity) = S0 / opa,
 //   d(r, g, b, depth) = sum w g. Columns 10-15, rows whose sums are all
-//   zero and rows the block never reaches stay as the caller's zeros.
+//   zero and rows the block never reaches stay as the caller's zeros. The
+//   output is f32, or bf16 (each value rounded to nearest even from the
+//   f32 sums, the JAX kernel's out_bf16): the same sums, half the bytes.
+//   early_stop is forward_tiles.cu's: without it the block walks its whole
+//   segment, with the same output bit for bit.
 //
 // The JAX kernel sums the moments in tile-local coordinates and expands
 // them (its lines 254-266: a_grad = -(ml^2 S0 - 2 ml SX + SXX) / 2, ...);
@@ -59,12 +63,15 @@
 //     row;
 //   * blocks launch longest segment first, as forward_tiles (tile order is
 //     slower). A tile keeps one block: its rows are then written once,
-//     without atomics.
+//     without atomics. At T = 16 the block has 256 threads and its shared
+//     memory (SharedLayout<16>, ~63 KB) a quarter of the partials, so three
+//     blocks share an SM.
 // No carry between blocks and no float atomics: every sum runs in a fixed
 // order, so runs repeat bit for bit. Tensor cores do not fit: the moments
 // cancel across pixels, and TF32 or bf16 products would miss the 1e-4
 // per-column tolerance; the rest is exps and a serial transmittance.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "tile_common.cuh"
@@ -105,11 +112,12 @@ __device__ __forceinline__ float reduce_sums(const float (&s)[kSums],
   return v[0] + __shfl_xor_sync(kFull, v[0], 1);
 }
 
-// One block of 1024 threads (a pixel each) per tile; kBatch pair rows per
+// One block of T^2 threads (a pixel each) per tile; kBatch pair rows per
 // staged batch. Shared memory (dynamic, SharedLayout) holds two batches of
 // staged rows and one batch of (warp, row) partials.
+template <int kSide>
 struct SharedLayout {
-  static constexpr int kWarps = kPixels / 32;
+  static constexpr int kWarps = Tile<kSide>::kPixels / 32;
   Coef coef[2][kBatch];
   float4 conic[2][kBatch];                     // nl, a, b, c
   float part[kWarps][kBatch][kSums];
@@ -118,18 +126,42 @@ struct SharedLayout {
   unsigned writers[2][kBatch];                 // warps that set a partial
 };
 
-__global__ void __launch_bounds__(kPixels, 1)
+// Stores the ten gradient columns of a row (o0: mean x, y, conic a, b; o1:
+// conic c, r, g, b; o2: opacity, depth) in f32 or, rounded to nearest
+// even, in bf16.
+__device__ __forceinline__ void store_row(float* o, float4 o0, float4 o1,
+                                          float2 o2) {
+  *reinterpret_cast<float4*>(o) = o0;
+  *reinterpret_cast<float4*>(o + 4) = o1;
+  *reinterpret_cast<float2*>(o + 8) = o2;
+}
+__device__ __forceinline__ void store_row(__nv_bfloat16* o, float4 o0,
+                                          float4 o1, float2 o2) {
+  auto* p = reinterpret_cast<__nv_bfloat162*>(o);
+  p[0] = __floats2bfloat162_rn(o0.x, o0.y);
+  p[1] = __floats2bfloat162_rn(o0.z, o0.w);
+  p[2] = __floats2bfloat162_rn(o1.x, o1.y);
+  p[3] = __floats2bfloat162_rn(o1.z, o1.w);
+  p[4] = __floats2bfloat162_rn(o2.x, o2.y);
+}
+
+template <int kSide, typename Out>
+__global__ void __launch_bounds__(kSide * kSide, 1024 / (kSide * kSide))
 backward_tiles_kernel(const float* __restrict__ pairs,
                       const int* __restrict__ tile_start,
                       const int* __restrict__ tile_count,
                       const int* __restrict__ order,
                       const float* __restrict__ fwd,
                       const float* __restrict__ grad,
-                      float* __restrict__ d_pairs,
-                      int ntx, int tiles_per_view) {
-  using S = SharedLayout;
+                      Out* __restrict__ d_pairs,
+                      int ntx, int tiles_per_view, int early_stop) {
+  using G = Tile<kSide>;
+  using S = SharedLayout<kSide>;
+  constexpr int kPixels = G::kPixels;
   constexpr int kStageWarps = kBatch / 32;    // warps that stage a batch
-  static_assert(kBatch % 32 == 0 && kStageWarps <= S::kWarps, "batch shape");
+  static_assert(kBatch % 32 == 0 && kStageWarps <= S::kWarps &&
+                    kBatch <= kPixels,
+                "batch shape");
   extern __shared__ float4 smem_raw[];
   S& sh = *reinterpret_cast<S*>(smem_raw);
 
@@ -137,9 +169,9 @@ backward_tiles_kernel(const float* __restrict__ pairs,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;           // = the warp's rectangle
   const int tv = t % tiles_per_view;
-  const float ox = static_cast<float>((tv % ntx) * kTile);
-  const float oy = static_cast<float>((tv / ntx) * kTile);
-  const int px = pixel_x(warp, lane), py = pixel_y(warp, lane);
+  const float ox = static_cast<float>((tv % ntx) * kSide);
+  const float oy = static_cast<float>((tv / ntx) * kSide);
+  const int px = G::pixel_x(warp, lane), py = G::pixel_y(warp, lane);
   const float X = static_cast<float>(px), Y = static_cast<float>(py);
   const int start = tile_start[t];
   const int count = tile_count[t];
@@ -157,8 +189,8 @@ backward_tiles_kernel(const float* __restrict__ pairs,
     if (warp < kStageWarps && b0 + slot < count) {
       wait_rows();
       const RawRow r = sh.raw[slot];
-      const Ellipse e = ellipse(r, ox, oy);
-      const unsigned m = cull_bits(e, kFull);
+      const Ellipse e = ellipse<kSide>(r, ox, oy);
+      const unsigned m = cull_bits<kSide>(e, G::kAll);
       sh.mask[buf][slot] = m;
       if (m != 0u) {
         sh.coef[buf][slot] = coefficients(r, ox, oy);
@@ -167,7 +199,7 @@ backward_tiles_kernel(const float* __restrict__ pairs,
     }
   };
 
-  const size_t pix = static_cast<size_t>(t) * 8 * kPixels + py * kTile + px;
+  const size_t pix = static_cast<size_t>(t) * 8 * kPixels + py * kSide + px;
   const float g_r = grad[pix];
   const float g_g = grad[pix + kPixels];
   const float g_b = grad[pix + 2 * kPixels];
@@ -189,12 +221,14 @@ backward_tiles_kernel(const float* __restrict__ pairs,
   fetch(kBatch);
   for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
     // makes batch `buf` visible; frees buffer buf ^ 1 and `part`
-    if (__syncthreads_count(live) == 0) break;
+    const int live_pixels = __syncthreads_count(live);
+    if (early_stop && live_pixels == 0) break;
     const int n = min(kBatch, count - base);
     for (int j = threadIdx.x; j < kBatch; j += kPixels) {
       sh.writers[buf ^ 1][j] = 0u;
     }
-    for (int c = 0; c < n && __any_sync(kFull, live); c += 32) {
+    for (int c = 0; c < n && (!early_stop || __any_sync(kFull, live));
+         c += 32) {
       const bool mine =
           c + lane < n && ((sh.mask[buf][c + lane] >> warp) & 1u);
       unsigned rows = __ballot_sync(kFull, mine);
@@ -270,7 +304,6 @@ backward_tiles_kernel(const float* __restrict__ pairs,
       const float4 g = sh.conic[buf][j];         // nl, a, b, c
       const float ca = g.y, cb = g.z, cc = g.w;
       const float opa = sh.coef[buf][j].q1.z;
-      float* o = d_pairs + static_cast<size_t>(start + base + j) * 16;
       float4 o0, o1;
       o0.x = -(ca * s[1] + cb * s[2]);                        // mean x
       o0.y = -(cc * s[2] + cb * s[1]);                        // mean y
@@ -284,35 +317,64 @@ backward_tiles_kernel(const float* __restrict__ pairs,
       // a live pixel has alpha = opa exp(power): sum d_alpha exp = S0 / opa
       o2.x = opa > 0.0f ? s[0] / fmaxf(opa, 1e-12f) : 0.0f;   // opacity
       o2.y = s[9];                                            // depth
-      *reinterpret_cast<float4*>(o) = o0;
-      *reinterpret_cast<float4*>(o + 4) = o1;
-      *reinterpret_cast<float2*>(o + 8) = o2;
+      store_row(d_pairs + static_cast<size_t>(start + base + j) * 16, o0, o1,
+                o2);
     }
     if (base + 2 * kBatch < count) fetch(base + 2 * kBatch);
   }
   wait_rows();  // a block that stopped early leaves no copy in flight
 }
 
+template <int kSide, typename Out>
+int launch(const float* pairs, const int* tile_start, const int* tile_count,
+           const int* order, const float* fwd, const float* grad,
+           void* d_pairs, int n_programs, int ntx, int tiles_per_view,
+           int early_stop, cudaStream_t stream) {
+  constexpr int bytes = sizeof(SharedLayout<kSide>);
+  static const cudaError_t set = cudaFuncSetAttribute(
+      backward_tiles_kernel<kSide, Out>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  backward_tiles_kernel<kSide, Out><<<n_programs, kSide * kSide, bytes,
+                                      stream>>>(
+      pairs, tile_start, tile_count, order, fwd, grad,
+      static_cast<Out*>(d_pairs), ntx, tiles_per_view, early_stop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. `order` lists the n_programs tiles in
-// launch order. Launches on `stream`, does not synchronise, and returns the
-// CUDA error (0 on success). `d_pairs` must hold zeros: the kernel writes
-// only the rows with a nonzero sum, columns 0-9.
+// launch order; `tile` is 16 or 32 and `d_pairs` [budget, 16] f32, or bf16
+// with `out_bf16` (anything else returns cudaErrorInvalidValue). Launches
+// on `stream`, does not synchronise, and returns the CUDA error (0 on
+// success). `d_pairs` must hold zeros: the kernel writes only the rows with
+// a nonzero sum, columns 0-9.
 extern "C" int backward_tiles_launch(const float* pairs, const int* tile_start,
                                      const int* tile_count, const int* order,
                                      const float* fwd, const float* grad,
-                                     float* d_pairs, int n_programs, int ntx,
-                                     int tiles_per_view, void* stream) {
+                                     void* d_pairs, int n_programs, int ntx,
+                                     int tiles_per_view, int tile,
+                                     int early_stop, int out_bf16,
+                                     void* stream) {
   if (n_programs <= 0) return 0;
-  constexpr int bytes = sizeof(SharedLayout);
-  static const cudaError_t set = cudaFuncSetAttribute(
-      backward_tiles_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  backward_tiles_kernel<<<n_programs, kPixels, bytes,
-                          static_cast<cudaStream_t>(stream)>>>(
-      pairs, tile_start, tile_count, order, fwd, grad, d_pairs, ntx,
-      tiles_per_view);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using Bf16 = __nv_bfloat16;
+  if (tile == 32) {
+    return out_bf16 ? launch<32, Bf16>(pairs, tile_start, tile_count, order,
+                                       fwd, grad, d_pairs, n_programs, ntx,
+                                       tiles_per_view, early_stop, s)
+                    : launch<32, float>(pairs, tile_start, tile_count, order,
+                                        fwd, grad, d_pairs, n_programs, ntx,
+                                        tiles_per_view, early_stop, s);
+  }
+  if (tile == 16) {
+    return out_bf16 ? launch<16, Bf16>(pairs, tile_start, tile_count, order,
+                                       fwd, grad, d_pairs, n_programs, ntx,
+                                       tiles_per_view, early_stop, s)
+                    : launch<16, float>(pairs, tile_start, tile_count, order,
+                                        fwd, grad, d_pairs, n_programs, ntx,
+                                        tiles_per_view, early_stop, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

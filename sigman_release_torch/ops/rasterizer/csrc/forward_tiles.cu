@@ -1,5 +1,6 @@
 // forward_tiles: front-to-back alpha compositing of depth-sorted Gaussian
-// pairs; four thread blocks per (view, 32x32 tile), one pixel a thread.
+// pairs; kBands thread blocks per (view, tile), one pixel a thread, for
+// tiles of 32 x 32 (four blocks) and 16 x 16 (two) pixels.
 //
 // Replaces the Pallas TPU kernel
 // ops/rasterizer/pallas_forward.py::forward_tiles of the JAX package
@@ -14,8 +15,11 @@
 //           opa exp(min(power, 0)) < 1/255
 //   a pair contributes while T_incl = Tf (1 - alpha) >= 1e-4; Tf multiplies
 //   through every pair, Tr is T_incl of the last contributor.
-// Output [n_programs, 8, 32^2]: rgb (no background), depth, 1 - Tr, Tr,
-// 0, 0.
+// Output [n_programs, 8, T^2] (T the tile side): rgb (no background),
+// depth, 1 - Tr, Tr, 0, 0. With early_stop (the JAX kernel's, on by
+// default) a block stops once every pixel of its band has saturated;
+// without it the block walks its whole segment, and the output is the same
+// bit for bit (a saturated pixel takes no more pairs).
 //
 // The exponent uses the same tile-local expanded quadratic as the Pallas
 // kernel and the plain version, with the same clamp at 0: evaluating
@@ -25,7 +29,7 @@
 // What bounds it on an H100. The work no exact kernel can skip is small: on
 // the main path's streams ~3% of the (pair, pixel) evaluations at
 // unsaturated pixels reach alpha > 0, so with one staging pass per pair row
-// the bound is the bytes (the rows read once, the [n, 8, 1024] output
+// the bound is the bytes (the rows read once, the [n, 8, T^2] output
 // written once). What holds the kernel far from it is the few long
 // segments: a tenth of the 512^2 views is covered, and a handful of tiles
 // hold 30-45 k pairs each while the median tile holds ~20, so the grid ends
@@ -37,19 +41,22 @@
 //     32-bit mask over the tile's 8 x 4 warp rectangles, and each warp
 //     takes, per 32 staged rows, the list of rows with its bit (a ballot)
 //     and walks only those; a skipped row costs the warp nothing;
-//   * kBands = 4 blocks of 256 threads share a tile, each a band of 8
-//     pixel rows, so a long segment is composited on four SMs (1 and 2
+//   * at T = 32, kBands = 4 blocks of 256 threads share a tile, each a band
+//     of 8 pixel rows, so a long segment is composited on four SMs (1 and 2
 //     blocks per tile are slower); a band block tests only its own
-//     rectangles at staging;
+//     rectangles at staging. At T = 16 a tile has 256 pixels: two bands of
+//     128 (one block of 256 threads was as fast, PERF.md);
 //   * blocks launch longest segment first (`order`, from the wrapper's
 //     argsort of tile_count, as backward_tiles), so the long tiles start in
 //     the first wave: faster on the training stream, a few hundredths of a
 //     millisecond slower on the serving stream, whose long tiles come early
 //     in tile order and where the argsort is not repaid;
 //   * rows are copied into shared memory with cp.async a batch ahead and
-//     staged 256 at a time (one row per lane) into a double buffer: one
-//     barrier per batch; staged rows are three float4, read as broadcasts.
-// The block stops once every pixel is saturated (__syncthreads_count).
+//     staged up to 256 at a time (one row per lane of a block's threads)
+//     into a double buffer: one barrier per batch; staged rows are three
+//     float4, read as broadcasts.
+// With early_stop the block stops once every pixel is saturated
+// (__syncthreads_count), and a warp leaves a batch once its pixels are.
 // Tensor cores do not fit: each (pair, pixel) step is an exp followed by a
 // serial f32 transmittance update, and nothing here is a matrix product.
 
@@ -61,21 +68,34 @@ namespace {
 
 using namespace tiles;
 
-constexpr int kBatch = 256;                  // pair rows per staged batch
-// blocks per tile, each a band of 32 / kBands pixel rows (whole rows of warp
-// rectangles), one pixel per thread
-constexpr int kBands = 4;
+// Blocks per tile, each a band of whole rows of warp rectangles.
+template <int kSide>
+__host__ __device__ constexpr int bands() { return kSide == 32 ? 4 : 2; }
 
-__global__ void __launch_bounds__(kPixels / kBands, kBands)
+// Threads of one block: a band of T / bands pixel rows of a T x T tile,
+// one pixel per thread.
+template <int kSide>
+__host__ __device__ constexpr int threads() {
+  return kSide * kSide / bands<kSide>();
+}
+
+template <int kSide>
+__global__ void __launch_bounds__(threads<kSide>(), 1024 / threads<kSide>())
 forward_tiles_kernel(const float* __restrict__ pairs,
                      const int* __restrict__ tile_start,
                      const int* __restrict__ tile_count,
                      const int* __restrict__ order,
                      float* __restrict__ out,
-                     int ntx, int tiles_per_view) {
-  constexpr int kWarps = kPixels / kBands / 32;
+                     int ntx, int tiles_per_view, int early_stop) {
+  using G = Tile<kSide>;
+  constexpr int kBands = bands<kSide>();
+  constexpr int kThreads = threads<kSide>();
+  constexpr int kWarps = kThreads / 32;
+  // pair rows per staged batch: one per lane of the staging warps
+  constexpr int kBatch = kThreads < 256 ? kThreads : 256;
   constexpr int kStageWarps = kBatch / 32;    // warps that stage a batch
   static_assert(kStageWarps <= kWarps, "one staged row per lane");
+  static_assert(kWarps % G::kRectsX == 0, "a band is whole rectangle rows");
   __shared__ Coef coef[2][kBatch];
   __shared__ unsigned mask[2][kBatch];
   __shared__ RawRow raw[kBatch];             // the next batch, in flight
@@ -88,9 +108,9 @@ forward_tiles_kernel(const float* __restrict__ pairs,
   // the mask bits of this block's warps
   const unsigned band_bits = ((1u << kWarps) - 1u) << (band * kWarps);
   const int tv = t % tiles_per_view;
-  const float ox = static_cast<float>((tv % ntx) * kTile);
-  const float oy = static_cast<float>((tv / ntx) * kTile);
-  const int px = pixel_x(rect, lane), py = pixel_y(rect, lane);
+  const float ox = static_cast<float>((tv % ntx) * kSide);
+  const float oy = static_cast<float>((tv / ntx) * kSide);
+  const int px = G::pixel_x(rect, lane), py = G::pixel_y(rect, lane);
   const float X = static_cast<float>(px), Y = static_cast<float>(py);
   const int start = tile_start[t];
   const int count = tile_count[t];
@@ -110,7 +130,8 @@ forward_tiles_kernel(const float* __restrict__ pairs,
     if (warp < kStageWarps && b0 + slot < count) {
       wait_rows();
       const RawRow r = raw[slot];
-      const unsigned m = cull_bits(ellipse(r, ox, oy), band_bits);
+      const unsigned m =
+          cull_bits<kSide>(ellipse<kSide>(r, ox, oy), band_bits);
       mask[buf][slot] = m;
       if (m != 0u) coef[buf][slot] = coefficients(r, ox, oy);
     }
@@ -125,9 +146,11 @@ forward_tiles_kernel(const float* __restrict__ pairs,
   fetch(kBatch);
   for (int base = 0, buf = 0; base < count; base += kBatch, buf ^= 1) {
     // makes batch `buf` visible and frees buffer buf ^ 1 for the next one
-    if (__syncthreads_count(live) == 0) break;
+    const int live_pixels = __syncthreads_count(live);
+    if (early_stop && live_pixels == 0) break;
     const int n = min(kBatch, count - base);
-    for (int c = 0; c < n && __any_sync(kFull, live); c += 32) {
+    for (int c = 0; c < n && (!early_stop || __any_sync(kFull, live));
+         c += 32) {
       // this warp's rows among these 32: those whose mask has its bit
       const bool mine = c + lane < n && ((mask[buf][c + lane] >> rect) & 1u);
       unsigned rows = __ballot_sync(kFull, mine);
@@ -161,7 +184,8 @@ forward_tiles_kernel(const float* __restrict__ pairs,
   }
   wait_rows();  // a block that stopped early leaves no copy in flight
 
-  float* o = out + static_cast<size_t>(t) * 8 * kPixels + py * kTile + px;
+  constexpr int kPixels = G::kPixels;
+  float* o = out + static_cast<size_t>(t) * 8 * kPixels + py * kSide + px;
   o[0] = acc_r;
   o[kPixels] = acc_g;
   o[2 * kPixels] = acc_b;
@@ -174,6 +198,7 @@ forward_tiles_kernel(const float* __restrict__ pairs,
 
 // The cull masks of rows [n, 16] (row i in the tile at origin[i] = (ox,
 // oy)) over every warp rectangle: what staging stores, for tests.
+template <int kSide>
 __global__ void cull_masks_kernel(const float* __restrict__ rows,
                                   const float* __restrict__ origin,
                                   unsigned* __restrict__ masks, int n) {
@@ -184,36 +209,65 @@ __global__ void cull_masks_kernel(const float* __restrict__ rows,
   r.f0 = *reinterpret_cast<const float4*>(p);
   r.f1 = *reinterpret_cast<const float4*>(p + 4);
   r.f2 = *reinterpret_cast<const float2*>(p + 8);
-  masks[i] = cull_bits(ellipse(r, origin[2 * i], origin[2 * i + 1]), kFull);
+  masks[i] = cull_bits<kSide>(
+      ellipse<kSide>(r, origin[2 * i], origin[2 * i + 1]), Tile<kSide>::kAll);
+}
+
+template <int kSide>
+void launch(const float* pairs, const int* tile_start, const int* tile_count,
+            const int* order, float* out, int n_programs, int ntx,
+            int tiles_per_view, int early_stop, cudaStream_t stream) {
+  forward_tiles_kernel<kSide>
+      <<<n_programs * bands<kSide>(), threads<kSide>(), 0, stream>>>(
+          pairs, tile_start, tile_count, order, out, ntx, tiles_per_view,
+          early_stop);
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. `order` lists the n_programs tiles in
-// launch order (tile order[i] is composited by blocks i * kBands ..
-// i * kBands + kBands - 1). Launches on `stream`, does not synchronise, and
+// launch order (tile order[i] is composited by the bands<tile>() blocks
+// from i * bands<tile>() on). `tile` is 32 or 16; anything else returns
+// cudaErrorInvalidValue. Launches on `stream`, does not synchronise, and
 // returns cudaGetLastError() (0 on success).
 extern "C" int forward_tiles_launch(const float* pairs, const int* tile_start,
                                     const int* tile_count, const int* order,
                                     float* out, int n_programs, int ntx,
-                                    int tiles_per_view, void* stream) {
+                                    int tiles_per_view, int tile,
+                                    int early_stop, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n_programs > 0) {
-    forward_tiles_kernel<<<n_programs * kBands, kPixels / kBands, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        pairs, tile_start, tile_count, order, out, ntx, tiles_per_view);
+    if (tile == 32) {
+      launch<32>(pairs, tile_start, tile_count, order, out, n_programs, ntx,
+                 tiles_per_view, early_stop, s);
+    } else if (tile == 16) {
+      launch<16>(pairs, tile_start, tile_count, order, out, n_programs, ntx,
+                 tiles_per_view, early_stop, s);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Plain C entry point for tests: the cull masks staging gives rows [n, 16]
-// (16-byte aligned) in the tiles at origin [n, 2]. Launches on `stream`,
-// does not synchronise, returns cudaGetLastError().
+// (16-byte aligned) in the tiles of side `tile` (16 or 32) at origin
+// [n, 2]. Launches on `stream`, does not synchronise, returns
+// cudaGetLastError().
 extern "C" int cull_masks_launch(const float* rows, const float* origin,
-                                 unsigned* masks, int n, void* stream) {
+                                 unsigned* masks, int n, int tile,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n > 0) {
-    cull_masks_kernel<<<(n + 255) / 256, 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(rows, origin,
-                                                             masks, n);
+    if (tile == 32) {
+      cull_masks_kernel<32><<<(n + 255) / 256, 256, 0, s>>>(rows, origin,
+                                                            masks, n);
+    } else if (tile == 16) {
+      cull_masks_kernel<16><<<(n + 255) / 256, 256, 0, s>>>(rows, origin,
+                                                            masks, n);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,15 +4,18 @@
 // that backward_tiles replays forward_tiles' alpha bit for bit) and the
 // exact per-warp cull.
 //
-// Pixel layout: one thread per pixel. The 32x32 tile is cut into 32 warp
-// rectangles of 8 x 4 pixels: rectangle r covers columns 8 (r % 4) ..
-// 8 (r % 4) + 7 and rows 4 (r / 4) .. 4 (r / 4) + 3, and lane l of its warp
-// is the pixel (l % 8, l / 8) in it. A block covers whole rows of
-// rectangles (forward_tiles: a band of the tile; backward_tiles: the tile).
+// Pixel layout: one thread per pixel. A tile of side T (32 or 16: each
+// kernel is instantiated for both, Tile<T> below) is cut into warp
+// rectangles of 8 x 4 pixels, Q = T / 8 to a row: rectangle r covers
+// columns 8 (r % Q) .. 8 (r % Q) + 7 and rows 4 (r / Q) .. 4 (r / Q) + 3,
+// and lane l of its warp is the pixel (l % 8, l / 8) in it; 32 rectangles
+// at T = 32, 8 at T = 16. A block covers whole rows of rectangles
+// (forward_tiles: a band of the tile; backward_tiles: the tile).
 //
 // The cull. A tile is large next to most Gaussians: on the main path's
 // streams most (pair, warp) slots hold no pixel with alpha > 0. Staging
-// gives each pair row a 32-bit mask, bit r clear when no pixel of
+// gives each pair row a 32-bit mask (its low 8 bits at T = 16), bit r
+// clear when no pixel of
 // rectangle r can reach the 1/255 alpha floor: the ellipse's minimum of
 // q(d) = d^T C d over the rectangle (binning's _rect_min_q: 0 with the mean
 // inside, else the least of the four edges' clamped minima) against
@@ -28,7 +31,7 @@
 //
 // What bounds both kernels on an H100 once the cull has removed the
 // evaluations no exact kernel needs: the bytes (each live pair row read
-// once, the [n, 8, 1024] tile buffers read or written once) and, in
+// once, the [n, 8, T^2] tile buffers read or written once) and, in
 // practice, the few segments of 30-45 k pairs whose tile's blocks run alone
 // at the end of the grid, where the per-row staging (the cull's exact
 // rectangle tests, once per row) sets the pace. Tensor cores do not fit: a
@@ -42,10 +45,7 @@
 
 namespace tiles {
 
-constexpr int kTile = 32;                    // tile side
-constexpr int kPixels = kTile * kTile;
 constexpr int kRectW = 8, kRectH = 4;        // a warp's pixel rectangle
-constexpr int kRectsX = kTile / kRectW;      // rectangles per rectangle row
 constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
@@ -55,13 +55,26 @@ constexpr float kCullRel = 1e-5f;            // forward_tiles.CULL_REL
 constexpr int kExactMax = 8;                 // forward_tiles.CULL_EXACT_MAX
 constexpr unsigned kFull = 0xffffffffu;
 
-// Tile-local pixel of lane `lane` in warp rectangle `rect`.
-__device__ __forceinline__ int pixel_x(int rect, int lane) {
-  return kRectW * (rect % kRectsX) + lane % kRectW;
-}
-__device__ __forceinline__ int pixel_y(int rect, int lane) {
-  return kRectH * (rect / kRectsX) + lane / kRectW;
-}
+// The geometry of a tile of side `kSide`.
+template <int kSide>
+struct Tile {
+  static_assert(kSide == 16 || kSide == 32, "tile side 16 or 32");
+  static constexpr int kPixels = kSide * kSide;
+  static constexpr int kRectsX = kSide / kRectW;  // rectangles per row
+  static constexpr int kRectsY = kSide / kRectH;  // rows of rectangles
+  static constexpr int kRects = kRectsX * kRectsY;
+  // the mask bits of every rectangle of the tile
+  static constexpr unsigned kAll =
+      kRects == 32 ? kFull : (1u << kRects) - 1u;
+
+  // Tile-local pixel of lane `lane` in warp rectangle `rect`.
+  static __device__ __forceinline__ int pixel_x(int rect, int lane) {
+    return kRectW * (rect % kRectsX) + lane % kRectW;
+  }
+  static __device__ __forceinline__ int pixel_y(int rect, int lane) {
+    return kRectH * (rect / kRectsX) + lane / kRectW;
+  }
+};
 
 // A staged pair row, 16-byte aligned so the inner loop reads three float4.
 struct __align__(16) Coef {
@@ -130,6 +143,7 @@ struct Ellipse {
   bool every_rect;       // conic not positive-definite: keep every rectangle
 };
 
+template <int kSide>
 __device__ __forceinline__ Ellipse ellipse(const RawRow& r, float ox,
                                            float oy) {
   Ellipse e;
@@ -142,7 +156,7 @@ __device__ __forceinline__ Ellipse ellipse(const RawRow& r, float ox,
   // (~1e-6 relative) sit far inside its slack
   e.every_rect =
       !(e.ca > 0.0f && e.cc > 0.0f && e.ca * e.cc - e.cb * e.cb > 0.0f);
-  const float mx = fabsf(e.ml) + kTile, my = fabsf(e.nl) + kTile;
+  const float mx = fabsf(e.ml) + kSide, my = fabsf(e.nl) + kSide;
   const float scale =
       e.ca * mx * mx + 2.0f * fabsf(e.cb) * mx * my + e.cc * my * my;
   e.thresh = 2.0f * __logf(255.0f * r.f2.x) + kCullAbs + kCullRel * scale;
@@ -152,12 +166,14 @@ __device__ __forceinline__ Ellipse ellipse(const RawRow& r, float ox,
 }
 
 // The least of q over warp rectangle `rect` (0 with the mean inside).
+template <int kSide>
 __device__ __forceinline__ float rect_min_q(const Ellipse& s, int rect) {
+  using G = Tile<kSide>;
   const float ml = s.ml, nl = s.nl, ca = s.ca, cb = s.cb, cc = s.cc;
   // the rectangle in d = pixel - mean
-  const float x0 = static_cast<float>(kRectW * (rect % kRectsX)) - ml;
+  const float x0 = static_cast<float>(kRectW * (rect % G::kRectsX)) - ml;
   const float x1 = x0 + (kRectW - 1.0f);
-  const float y0 = static_cast<float>(kRectH * (rect / kRectsX)) - nl;
+  const float y0 = static_cast<float>(kRectH * (rect / G::kRectsX)) - nl;
   const float y1 = y0 + (kRectH - 1.0f);
   if (x0 <= 0.0f && x1 >= 0.0f && y0 <= 0.0f && y1 >= 0.0f) return 0.0f;
   auto q = [&](float x, float y) {
@@ -180,12 +196,15 @@ __device__ __forceinline__ float rect_min_q(const Ellipse& s, int rect) {
 // degenerate conic, whose determinant f32 does not resolve. Up to
 // kExactMax candidates take the exact test; more (a large Gaussian, which
 // reaches most of them anyway) are kept as they are, so that one lane's
-// row cannot hold up its warp's staging.
+// row cannot hold up its warp's staging. At T = 16 a tile has only 8
+// rectangles, so every candidate takes the exact test.
+template <int kSide>
 __device__ __forceinline__ unsigned cull_bits(const Ellipse& s,
                                               unsigned wanted) {
+  using G = Tile<kSide>;
   if (s.every_rect) return wanted;
   if (!(s.thresh >= 0.0f)) return 0u;          // q >= 0 everywhere
-  unsigned cand = kFull;
+  unsigned cand = G::kAll;
   const float det = s.ca * s.cc - s.cb * s.cb;
   if (det > 1e-4f * s.ca * s.cc) {
     const float t = __fdividef(s.thresh, det);
@@ -197,15 +216,15 @@ __device__ __forceinline__ unsigned cull_bits(const Ellipse& s,
     const int i0 = static_cast<int>(
         fmaxf(ceilf((ml - hx - (kRectW - 1.0f)) / kRectW), 0.0f));
     const int i1 = static_cast<int>(
-        fminf(floorf((ml + hx) / kRectW), kRectsX - 1.0f));
+        fminf(floorf((ml + hx) / kRectW), G::kRectsX - 1.0f));
     const int j0 = static_cast<int>(
         fmaxf(ceilf((nl - hy - (kRectH - 1.0f)) / kRectH), 0.0f));
     const int j1 = static_cast<int>(
-        fminf(floorf((nl + hy) / kRectH), kTile / kRectH - 1.0f));
+        fminf(floorf((nl + hy) / kRectH), G::kRectsY - 1.0f));
     unsigned box = 0u;
     if (i0 <= i1) {
       const unsigned cols = ((2u << i1) - 1u) & ~((1u << i0) - 1u);
-      for (int j = j0; j <= j1; ++j) box |= cols << (kRectsX * j);
+      for (int j = j0; j <= j1; ++j) box |= cols << (G::kRectsX * j);
     }
     cand = box;
   }
@@ -214,7 +233,7 @@ __device__ __forceinline__ unsigned cull_bits(const Ellipse& s,
   unsigned bits = 0u;
   for (unsigned m = cand; m; m &= m - 1) {
     const int r = __ffs(m) - 1;
-    if (rect_min_q(s, r) <= s.thresh) bits |= 1u << r;
+    if (rect_min_q<kSide>(s, r) <= s.thresh) bits |= 1u << r;
   }
   return bits;
 }

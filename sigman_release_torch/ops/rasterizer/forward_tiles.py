@@ -1,7 +1,8 @@
 """K1: per-tile front-to-back alpha compositing — CUDA kernel + plain version.
 
 Replaces the Pallas TPU kernel ``ops/rasterizer/pallas_forward.py::
-forward_tiles`` of the JAX package. One program per (view, 32x32 tile)
+forward_tiles`` of the JAX package. One program per (view, tile) of
+``tile`` x ``tile`` pixels (16 or 32, as the JAX kernel's ``tile``)
 composites the tile's depth-sorted pair segment
 ``[tile_start, tile_start + tile_count)`` of the row-major ``[budget, 16]``
 pair stream. Rules (shared with the JAX package's dense oracle):
@@ -12,8 +13,12 @@ pair stream. Rules (shared with the JAX package's dense oracle):
   plain version alike — see the clamp note in ``_alpha``;
 * a pair contributes while T_incl >= 1e-4; Tf multiplies through every pair,
   Tr is the min of T_incl over contributors;
-* output ``[n_programs, 8, TILE^2]``: rgb (no background), depth, 1 - Tr, Tr,
-  0, 0.
+* output ``[n_programs, 8, tile^2]``: rgb (no background), depth, 1 - Tr, Tr,
+  0, 0;
+* with ``early_stop`` (the default) a tile stops once every pixel has
+  saturated; without it it walks its whole segment. The output is the same
+  bit for bit: saturated pixels take nothing more (the JAX package's
+  ``early_stop``).
 
 ``forward_tiles`` launches the CUDA kernel (``csrc/forward_tiles.cu``) for a
 CUDA tensor and takes the plain version only for a CPU tensor. The kernel
@@ -31,7 +36,7 @@ import torch
 
 from sigman_release_torch.ops.rasterizer.binning import (
     ALPHA_MIN, F_CA, F_CB, F_CC, F_DEPTH, F_MX, F_MY, F_OPA, F_R, PAIR_FEATS,
-    TILE,
+    TILE, check_tile,
 )
 from sigman_release_torch.utils import cuda_build
 
@@ -49,9 +54,9 @@ PLAIN_STEP_ELEMS = 1 << 25
 # holds from 1e-7 on: 1e-5 leaves 100x
 CULL_ABS = 1e-2
 CULL_REL = 1e-5
-# a warp's pixel rectangle in the kernels (csrc/tile_common.cuh)
+# a warp's pixel rectangle in the kernels (csrc/tile_common.cuh): a tile
+# of side t has (t / 8) x (t / 4) of them, 32 at 32 and 8 at 16
 RECT_W, RECT_H = 8, 4
-RECTS_X = TILE // RECT_W
 # the cull tests at most this many candidate rectangles exactly
 CULL_EXACT_MAX = 8
 
@@ -61,10 +66,10 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "forward_tiles.cu"
 def _library() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     fn = lib.forward_tiles_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.cull_masks_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -77,17 +82,22 @@ def launch_order(tile_count: torch.Tensor) -> torch.Tensor:
 
 def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
                   tile_count: torch.Tensor, *, ntx: int, tiles_per_view: int,
-                  chunk: int = 128) -> torch.Tensor:
-    """Composite every (view, tile) segment. Returns [n, 8, TILE^2] f32.
+                  chunk: int = 128, tile: int = TILE,
+                  early_stop: bool = True) -> torch.Tensor:
+    """Composite every (view, tile) segment. Returns [n, 8, tile^2] f32.
 
-    pairs [budget, 16] f32; tile_start / tile_count [n] int32. CUDA tensors
-    launch the kernel (counted in ``forward_tiles.launches``): four blocks
-    per tile, longest segment first (``launch_order``); CPU tensors run
+    pairs [budget, 16] f32; tile_start / tile_count [n] int32; ``tile`` 16
+    or 32. CUDA tensors launch the kernel of that tile (counted in
+    ``forward_tiles.launches``, and by variant in
+    ``forward_tiles.launches_by_variant``): 4 blocks per tile at 32, 2 at
+    16, longest segment first (``launch_order``); CPU tensors run
     :func:`forward_tiles_plain` (``chunk`` sets its pair grouping).
     """
+    check_tile(tile)
     if pairs.device.type == "cpu":
         return forward_tiles_plain(pairs, tile_start, tile_count, ntx=ntx,
-                                   tiles_per_view=tiles_per_view, chunk=chunk)
+                                   tiles_per_view=tiles_per_view, chunk=chunk,
+                                   tile=tile, early_stop=early_stop)
     if pairs.device.type != "cuda":
         raise ValueError(f"forward_tiles: unsupported device {pairs.device}")
     n = tile_start.shape[0]
@@ -103,21 +113,34 @@ def forward_tiles(pairs: torch.Tensor, tile_start: torch.Tensor,
         raise ValueError("forward_tiles needs contiguous inputs")
     if pairs.data_ptr() % 16:
         raise ValueError("pairs must be 16-byte aligned")
-    out = torch.empty((n, 8, TILE * TILE), dtype=torch.float32,
+    out = torch.empty((n, 8, tile * tile), dtype=torch.float32,
                       device=pairs.device)
     order = launch_order(tile_count)
     lib = _library()
     stream = torch.cuda.current_stream(pairs.device).cuda_stream
     rc = lib.forward_tiles_launch(
         pairs.data_ptr(), tile_start.data_ptr(), tile_count.data_ptr(),
-        order.data_ptr(), out.data_ptr(), n, ntx, tiles_per_view, stream)
+        order.data_ptr(), out.data_ptr(), n, ntx, tiles_per_view, tile,
+        int(early_stop), stream)
     if rc != 0:
         raise RuntimeError(f"forward_tiles kernel launch failed: cudaError {rc}")
     forward_tiles.launches += 1
+    count_variants(forward_tiles.launches_by_variant, tile, early_stop)
     return out
 
 
+def count_variants(counts: dict, tile: int, early_stop: bool,
+                   out_bf16: bool = False):
+    """Adds a launch to ``counts`` under each knob it ran off the default
+    ("tile16", "early_stop_off", "bf16")."""
+    for name, on in (("tile16", tile == 16), ("early_stop_off", not early_stop),
+                     ("bf16", out_bf16)):
+        if on:
+            counts[name] = counts.get(name, 0) + 1
+
+
 forward_tiles.launches = 0
+forward_tiles.launches_by_variant = {}
 
 
 def _fma(a, b, c):
@@ -157,10 +180,10 @@ def _alpha(feats, ox, oy, basis, row_ok):
     return alpha, power_ok
 
 
-def cull_rects(feats, ox, oy):
-    """The kernels' exact cull: [..., 32] bool per pair row and warp
-    rectangle of the tile (``rect_view``), False where no pixel of the
-    rectangle can get alpha > 0.
+def cull_rects(feats, ox, oy, tile=TILE):
+    """The kernels' exact cull: [..., R] bool per pair row and warp
+    rectangle of the tile (``rect_view``; R = 32 at tile 32, 8 at 16), False
+    where no pixel of the rectangle can get alpha > 0.
 
     Mirror of ``cull_bits`` in ``csrc/tile_common.cuh``; the kernels skip a
     pair in a warp whose bit is clear (tests and chip_smoke.py's counts use
@@ -174,7 +197,8 @@ def cull_rects(feats, ox, oy):
     with the mean inside, else least on an edge at the clamped argmin
     (binning's ``_rect_min_q``); more are all kept. The kernels' exponent
     is the expanded tile-local quadratic, whose f32 terms are up to S =
-    a (|ml| + 32)^2 + 2 |b| (|ml| + 32)(|nl| + 32) + c (|nl| + 32)^2; its
+    a (|ml| + t)^2 + 2 |b| (|ml| + t)(|nl| + t) + c (|nl| + t)^2 (t the
+    tile side); its
     rounding (and the test's) stays far below the slack CULL_ABS +
     CULL_REL * S on the threshold. A conic that is not positive-definite
     keeps every rectangle.
@@ -185,11 +209,12 @@ def cull_rects(feats, ox, oy):
     det = ca * cc - cb * cb
     pd = (ca > 0) & (cc > 0) & (det > 0)
     qt = 2.0 * torch.log(255.0 * feats[..., F_OPA, None])
-    mx, my = ml.abs() + TILE, nl.abs() + TILE
+    mx, my = ml.abs() + tile, nl.abs() + tile
     scale = ca * mx * mx + 2.0 * cb.abs() * mx * my + cc * my * my
     thresh = qt + CULL_ABS + CULL_REL * scale
-    rect = torch.arange(TILE, device=feats.device)
-    col, row = rect % RECTS_X, rect // RECTS_X
+    rects_x = tile // RECT_W
+    rect = torch.arange(rects_x * (tile // RECT_H), device=feats.device)
+    col, row = rect % rects_x, rect // rects_x
     # candidates: the rectangles the widened bounding box touches
     t = thresh / det
     hx = torch.sqrt(t * cc) * 1.01 + 0.01
@@ -221,24 +246,31 @@ def cull_rects(feats, ox, oy):
     return ~pd | ((thresh >= 0) & cand & (many | exact))
 
 
-def rect_view(x):
-    """[..., TILE^2] per-pixel values (row-major tile) -> [..., 32, 32]:
-    (warp rectangle, lane). Rectangle r covers columns RECT_W (r % 4) + ..
-    and rows RECT_H (r // 4) + ..; lane l is its pixel (l % 8, l // 8)."""
-    y = x.unflatten(-1, (TILE // RECT_H, RECT_H, RECTS_X, RECT_W))
+def rect_view(x, tile=TILE):
+    """[..., tile^2] per-pixel values (row-major tile) -> [..., R, 32]:
+    (warp rectangle, lane). With q = tile / 8 rectangles a row, rectangle r
+    covers columns RECT_W (r % q) + .. and rows RECT_H (r // q) + ..; lane l
+    is its pixel (l % 8, l // 8)."""
+    y = x.unflatten(-1, (tile // RECT_H, RECT_H, tile // RECT_W, RECT_W))
     return y.transpose(-3, -2).flatten(-4, -3).flatten(-2, -1)
 
 
-def pixel_frame(n, tiles_per_view, ntx, dev):
+def pixel_frame(n, tiles_per_view, ntx, dev, tile=TILE):
     """Tile origins ox/oy [n,1] and the tile-local pixel basis
-    [6, TILE^2] = (1, X, Y, X^2, XY, Y^2)."""
+    [6, tile^2] = (1, X, Y, X^2, XY, Y^2)."""
     tv = torch.arange(n, device=dev) % tiles_per_view
-    ox = ((tv % ntx) * TILE).to(torch.float32)[:, None]
-    oy = ((tv // ntx) * TILE).to(torch.float32)[:, None]
-    pix = torch.arange(TILE * TILE, device=dev)
-    X = (pix % TILE).to(torch.float32)
-    Y = (pix // TILE).to(torch.float32)
+    ox = ((tv % ntx) * tile).to(torch.float32)[:, None]
+    oy = ((tv // ntx) * tile).to(torch.float32)[:, None]
+    pix = torch.arange(tile * tile, device=dev)
+    X = (pix % tile).to(torch.float32)
+    Y = (pix // tile).to(torch.float32)
     return ox, oy, torch.stack([torch.ones_like(X), X, Y, X * X, X * Y, Y * Y])
+
+
+def open_tiles(tiles_g, n_chunks, c, alive):
+    """The tiles of a plain version's group that take chunk step ``c``:
+    those whose segment reaches it and that have not stopped."""
+    return tiles_g[(n_chunks[tiles_g] > c) & alive[tiles_g]]
 
 
 def segment_chunks(tile_start, tile_count, chunk):
@@ -251,13 +283,13 @@ def segment_chunks(tile_start, tile_count, chunk):
     return start // chunk, off, count, n_chunks
 
 
-def work_counts(row_ok, t_excl, power_ok, alpha, contrib, kept):
+def work_counts(row_ok, t_excl, power_ok, alpha, contrib, kept, tile=TILE):
     """Counts (``WORK_CLASSES`` then ``WARP_CLASSES``) of one chunk step.
-    [a,K,P] masks; ``kept`` [a,K,32] is ``cull_rects``."""
+    [a,K,P] masks; ``kept`` [a,K,R] is ``cull_rects``."""
     needed = row_ok[..., None] & (t_excl >= T_EPS)
     hit = needed & (alpha > 0)
-    slots = rect_view(needed).any(-1)                       # [a,K,rect]
-    empty = slots & rect_view(alpha == 0).all(-1)
+    slots = rect_view(needed, tile).any(-1)                 # [a,K,rect]
+    empty = slots & rect_view(alpha == 0, tile).all(-1)
     return torch.stack([(needed & ~power_ok).sum(),
                         (needed & power_ok & (alpha == 0)).sum(),
                         (hit & contrib).sum(),
@@ -276,14 +308,15 @@ WARP_CLASSES = ("warp_slots", "warp_slots_empty", "warp_slots_kept")
 
 
 def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
-                        chunk=128, work=None):
+                        chunk=128, tile=TILE, early_stop=True, work=None):
     """Plain PyTorch version of :func:`forward_tiles` (same arguments).
 
     Vectorised over groups of tiles, one chunk step at a time over the
     JAX package's global chunk grid (a tile's first chunk is shared with its
     neighbours and masked), carrying Tf/Tr between steps; inside a chunk the
     transmittance is exp(cumsum(log(1 - alpha))). Tiles whose segment has
-    ended drop out of later steps.
+    ended drop out of later steps, and with ``early_stop`` so do tiles
+    whose every pixel has saturated.
 
     ``work``, if a dict, receives the count of each of ``WORK_CLASSES``: the
     (pair, pixel) evaluations at pixels not yet saturated — the work an
@@ -292,10 +325,11 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
     those that contribute, and the last one of each pixel that saturates;
     and of each of ``WARP_CLASSES``.
     """
+    check_tile(tile)
     dev = pairs.device
     n = tile_start.shape[0]
-    npx = TILE * TILE
-    ox, oy, basis = pixel_frame(n, tiles_per_view, ntx, dev)
+    npx = tile * tile
+    ox, oy, basis = pixel_frame(n, tiles_per_view, ntx, dev, tile)
     chunk0, off, count, n_chunks = segment_chunks(tile_start, tile_count,
                                                   chunk)
     row = torch.arange(chunk, device=dev)
@@ -304,6 +338,7 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
     Tf = torch.ones((n, 1, npx), device=dev)
     Tr = torch.ones((n, 1, npx), device=dev)
     acc = torch.zeros((n, 4, npx), device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
     classes = WORK_CLASSES + WARP_CLASSES
     counts = torch.zeros(len(classes), dtype=torch.int64, device=dev)
     # tiles go in groups so one step's [tiles, chunk, pixels] f64 temporaries
@@ -313,7 +348,9 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
         tiles_g = torch.arange(g0, min(n, g0 + group), device=dev)
         steps = int(n_chunks[tiles_g].max()) if len(tiles_g) else 0
         for c in range(steps):
-            act = tiles_g[n_chunks[tiles_g] > c]             # tiles still open
+            act = open_tiles(tiles_g, n_chunks, c, alive)
+            if not len(act):
+                break
             idx = (chunk0[act, None] + c) * chunk + row      # [a,K]
             pos = c * chunk + row - off[act, None]
             row_ok = (pos >= 0) & (pos < count[act, None])
@@ -332,11 +369,14 @@ def forward_tiles_plain(pairs, tile_start, tile_count, *, ntx, tiles_per_view,
             if work is not None:
                 counts += work_counts(row_ok, t_excl, power_ok, alpha,
                                       contrib,
-                                      cull_rects(feats, ox[act], oy[act]))
+                                      cull_rects(feats, ox[act], oy[act],
+                                                 tile), tile)
             Tf[act] = t_incl[:, -1:]
             Tr[act] = torch.minimum(
                 Tr[act],
                 torch.where(contrib, t_incl, 1.0).amin(dim=1, keepdim=True))
+            if early_stop:
+                alive[act] = Tf[act].amax(dim=(1, 2)) >= T_EPS
     if work is not None:
         work.update(zip(classes, counts.tolist()))
     zero = torch.zeros((n, 2, npx), device=dev)

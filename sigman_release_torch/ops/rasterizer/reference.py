@@ -31,15 +31,17 @@ def render_dense(
     img_h: int,
     img_w: int,
     bg_color: torch.Tensor,       # [3]
+    tile_size: int = TILE,
 ):
     """Render one view. Returns dict with image [3,H,W], alpha/depth [1,H,W].
 
-    A Gaussian touches exactly the pixels of the 32-pixel tiles its 3-sigma
-    screen rect overlaps (the CUDA rasterizer's tile-rect cutoff, the JAX
-    oracle's default ``tile_size``). Rows go in blocks of 16 to bound the
+    A Gaussian touches exactly the pixels of the ``tile_size``-pixel tiles
+    its 3-sigma screen rect overlaps (the CUDA rasterizer's tile-rect
+    cutoff; 32 is the JAX oracle's default); ``tile_size=0`` composites every
+    Gaussian at every pixel. Rows go in blocks of 16 to bound the
     [rows, W, N] intermediates.
     """
-    row_block, tile = 16, TILE
+    row_block, tile = 16, tile_size
     opacity = opacity.reshape(-1)
     proj = project_gaussians(means3d, cov3d, cam_view, cam_view_proj,
                              tan_half_fovx, tan_half_fovy, img_h, img_w)
@@ -54,10 +56,11 @@ def render_dense(
     col = colors[order].to(torch.float32)
     opa = torch.where(proj.valid[order], opacity[order].to(torch.float32), 0.0)
     xs = torch.arange(img_w, dtype=torch.float32, device=means3d.device)
-    x0 = torch.floor((mean2d[:, 0] - radius) / tile)
-    x1 = torch.floor((mean2d[:, 0] + radius) / tile) + 1
-    y0 = torch.floor((mean2d[:, 1] - radius) / tile)
-    y1 = torch.floor((mean2d[:, 1] + radius) / tile) + 1
+    if tile:
+        x0 = torch.floor((mean2d[:, 0] - radius) / tile)
+        x1 = torch.floor((mean2d[:, 0] + radius) / tile) + 1
+        y0 = torch.floor((mean2d[:, 1] - radius) / tile)
+        y1 = torch.floor((mean2d[:, 1] + radius) / tile) + 1
 
     def block_fn(y_rows):                         # [R] row indices
         px = xs[None, :, None]                    # [1,W,1]
@@ -69,10 +72,11 @@ def render_dense(
         alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
         alpha = torch.where(power > 0.0, 0.0, alpha)     # CUDA skips power>0
         alpha = torch.where(alpha < ALPHA_MIN, 0.0, alpha)
-        tx = torch.floor(px / tile)
-        ty = torch.floor(py / tile)
-        in_rect = (tx >= x0) & (tx < x1) & (ty >= y0) & (ty < y1)
-        alpha = torch.where(in_rect, alpha, 0.0)
+        if tile:
+            tx = torch.floor(px / tile)
+            ty = torch.floor(py / tile)
+            in_rect = (tx >= x0) & (tx < x1) & (ty >= y0) & (ty < y1)
+            alpha = torch.where(in_rect, alpha, 0.0)
         one_m = 1.0 - alpha
         t_inc = torch.cumprod(one_m, dim=-1)             # inclusive
         contrib = t_inc >= T_EPS                         # early-stop rule

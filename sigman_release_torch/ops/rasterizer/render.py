@@ -4,19 +4,21 @@ Port of the JAX package's ``ops/rasterizer/render.py``. ``rasterize_single``
 renders one Gaussian set from V cameras through one binning of all views and
 one ``forward_tiles`` launch over every (view, tile).
 
-Differentiation: projection, binning and placement are plain PyTorch
-(autograd); only compositing carries its own rule, :class:`Composite`,
-whose forward is K1 and whose backward is K2 (``backward_tiles``). Its
-boundary is the dense ``[budget, 16]`` pair stream, so autograd carries
-d(stream) back through ``place_pairs``' gather of pair rows: the VJP of that
-gather is the pair -> Gaussian scatter-add the JAX package builds by hand
-(``regroup_pair_grads``). The gradient stream is f32 (the JAX package's
-``grad_stream_bf16=False``).
+Differentiation: projection and binning are plain PyTorch (autograd); the
+placement of pair rows into the dense ``[budget, 16]`` stream and the
+compositing carry one rule, :class:`Composite`, whose forward is K1 and
+whose backward is K2 (``backward_tiles``) followed by the pair -> Gaussian
+scatter-add of the live stream rows (the JAX package's
+``regroup_pair_grads``). With ``grad_stream_bf16`` K2 writes the stream's
+gradient in bf16 and only its live rows are widened to f32 for the sums, as
+the JAX package's one custom VJP over placement and compositing does: a
+bf16 gradient that crossed an autograd edge of the f32 stream would be cast
+back to a whole f32 copy.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,7 +30,13 @@ from sigman_release_torch.utils.timing import NULL_TIMER
 
 
 class RasterizeConfig(NamedTuple):
-    """Static rasterizer parameters."""
+    """Static rasterizer parameters. The knobs ``tile``,
+    ``grad_stream_bf16``, ``early_stop``, ``per_view_budget`` and
+    ``cumsum_mode`` carry the JAX package's names and meanings; set one on
+    a renderer with ``renderer.raster_cfg = renderer.raster_cfg._replace(
+    ...)``. The JAX package's ``regroup_mode``, ``compact_sort`` and
+    ``interpret`` choose how its TPU program is lowered and have no
+    counterpart here."""
 
     img_h: int = 512
     img_w: int = 512
@@ -37,6 +45,7 @@ class RasterizeConfig(NamedTuple):
     # pair-stream granularity: the budget rounds up to it, per-view regions
     # align to it, and the plain version composites one chunk per step
     chunk: int = 128
+    # windows in tiles of side ``tile``: widen them as the tile shrinks
     max_tiles_per_gaussian: int = 9
     pair_budget_factor: int = 5
     # side of the top-K fallback window (tiles)
@@ -44,37 +53,70 @@ class RasterizeConfig(NamedTuple):
     # opacity-exact cutoff radius (binning.bin_gaussians); False reproduces
     # the CUDA preprocess's 3-sigma tile-rect truncation
     exact_radius: bool = True
+    # pixel tile side, 16 or 32 (each has its instantiation of K1 and K2)
+    tile: int = TILE
+    # K2 writes the pair-gradient stream in bf16 (rounded to nearest even;
+    # the sums into the Gaussian rows stay f32). The JAX package defaults to
+    # True; the port to the f32 stream
+    grad_stream_bf16: bool = False
+    # a tile stops once every pixel has saturated (T < 1e-4); False walks
+    # every segment to its end, with the same output bit for bit
+    early_stop: bool = True
+    # None: per-view budget regions when V > 1, one global prefix otherwise
+    per_view_budget: Optional[bool] = None
+    # the JAX kernels' prefix sums are triangular matmuls on the MXU, and
+    # "bf16x2" / "bf16" trade passes for rounding; the port's kernels keep
+    # a running f32 product, which is the "f32" class, so only it is taken
+    cumsum_mode: str = "f32"
 
     @property
     def ntx(self) -> int:
-        return -(-self.img_w // TILE)
+        return -(-self.img_w // self.tile)
 
     @property
     def nty(self) -> int:
-        return -(-self.img_h // TILE)
+        return -(-self.img_h // self.tile)
 
     @property
     def n_tiles(self) -> int:
         return self.ntx * self.nty
 
 
-class PairStream(NamedTuple):
-    """What K1 consumes: the dense pair stream and its tile segments."""
+def check_config(cfg: RasterizeConfig) -> RasterizeConfig:
+    """``cfg`` if the port's kernels can run it, else ValueError."""
+    binning_lib.check_tile(cfg.tile)
+    if cfg.cumsum_mode != "f32":
+        raise ValueError(
+            f"cumsum_mode={cfg.cumsum_mode!r}: the JAX package's "
+            "'bf16x2' / 'bf16' choose how many MXU passes its triangular-"
+            "matmul prefix sums take; the port's kernels keep a running f32 "
+            "product (the 'f32' class) and take only 'f32'")
+    return cfg
 
-    pairs: torch.Tensor        # [budget, 16] f32
+
+class PairStream(NamedTuple):
+    """What K1 consumes: the dense pair stream and its tile segments, and
+    where its live rows come from."""
+
+    pairs: torch.Tensor        # [budget, 16] f32, no autograd history
     tile_start: torch.Tensor   # [V*n_tiles] i32
     tile_count: torch.Tensor   # [V*n_tiles] i32
     overflow: torch.Tensor     # [] i64 dropped (gaussian, tile) pairs
+    src: torch.Tensor          # [V*N + V*K, 16] pair rows (differentiable)
+    slots: torch.Tensor        # [L] i64 stream rows that hold a pair
+    rows: torch.Tensor         # [L] i64 their ``src`` rows
 
 
 def prepare_pairs(means3d, cov3d, colors, opacity, cam_view, cam_view_proj,
                   cfg: RasterizeConfig) -> PairStream:
     """Project, bin and place: the pair stream of one Gaussian set, V views
-    (per-view budget regions when V > 1, one global prefix otherwise)."""
+    (per-view budget regions or one global prefix, ``per_view_budget``)."""
+    check_config(cfg)
     V = cam_view.shape[0]
     proj = project_gaussians(means3d, cov3d, cam_view, cam_view_proj,
                              cfg.tan_half_fovx, cfg.tan_half_fovy,
                              cfg.img_h, cfg.img_w)
+    pvb = cfg.per_view_budget if cfg.per_view_budget is not None else V > 1
     bins = binning_lib.bin_gaussians(
         proj, colors, opacity, cfg.img_h, cfg.img_w,
         max_tiles_per_gaussian=cfg.max_tiles_per_gaussian,
@@ -82,46 +124,64 @@ def prepare_pairs(means3d, cov3d, colors, opacity, cam_view, cam_view_proj,
         pair_budget=cfg.pair_budget_factor * means3d.shape[0] * V,
         big_win=cfg.big_win,
         exact_radius=cfg.exact_radius,
-        per_view_budget=V > 1,
+        per_view_budget=pvb,
+        tile_size=cfg.tile,
     )
-    pairs = binning_lib.place_pairs(bins.feats16, bins.feats_big,
-                                    bins.valid_prefix, bins.pay_prefix,
-                                    bins.dims)
-    return PairStream(pairs.contiguous(), bins.tile_start, bins.tile_count,
-                      bins.overflow)
+    src = torch.cat([bins.feats16, bins.feats_big])
+    pairs, slots, rows = binning_lib.place_pairs(
+        src, bins.valid_prefix, bins.pay_prefix, bins.dims)
+    return PairStream(pairs, bins.tile_start, bins.tile_count, bins.overflow,
+                      src, slots, rows)
 
 
 class Composite(torch.autograd.Function):
-    """Tile compositing with its analytic VJP: forward K1, backward K2.
+    """Placement and tile compositing with their analytic VJP: forward K1
+    on the placed stream, backward K2 and the scatter-add of the live
+    stream rows into the ``src`` rows.
 
-    Takes the pair stream and its segments; saves the stream, the segments
-    and the tile buffers; returns d(stream) (segments take no gradient).
+    Takes ``src`` (the only differentiable input), the placed stream, its
+    live rows and segments and the config; returns the tile buffers.
     """
 
     @staticmethod
-    def forward(ctx, pairs, tile_start, tile_count, ntx, tiles_per_view,
-                chunk):
-        tiles = forward_tiles(pairs, tile_start, tile_count, ntx=ntx,
-                              tiles_per_view=tiles_per_view, chunk=chunk)
-        ctx.save_for_backward(pairs, tile_start, tile_count, tiles)
-        ctx.layout = (ntx, tiles_per_view, chunk)
+    def forward(ctx, src, pairs, slots, rows, tile_start, tile_count, cfg):
+        tiles = forward_tiles(pairs, tile_start, tile_count, ntx=cfg.ntx,
+                              tiles_per_view=cfg.n_tiles, chunk=cfg.chunk,
+                              tile=cfg.tile, early_stop=cfg.early_stop)
+        ctx.save_for_backward(pairs, slots, rows, tile_start, tile_count,
+                              tiles)
+        ctx.cfg, ctx.src_rows = cfg, src.shape[0]
         return tiles
 
     @staticmethod
     def backward(ctx, g_tiles):
-        pairs, tile_start, tile_count, tiles = ctx.saved_tensors
-        ntx, tiles_per_view, chunk = ctx.layout
+        pairs, slots, rows, tile_start, tile_count, tiles = ctx.saved_tensors
+        cfg = ctx.cfg
         d_pairs = backward_tiles(pairs, tile_start, tile_count, tiles,
-                                 g_tiles.contiguous(), ntx=ntx,
-                                 tiles_per_view=tiles_per_view, chunk=chunk)
-        return d_pairs, None, None, None, None, None
+                                 g_tiles.contiguous(), ntx=cfg.ntx,
+                                 tiles_per_view=cfg.n_tiles, chunk=cfg.chunk,
+                                 tile=cfg.tile, early_stop=cfg.early_stop,
+                                 out_bf16=cfg.grad_stream_bf16)
+        return (regroup(d_pairs, slots, rows, ctx.src_rows), None, None, None,
+                None, None, None)
+
+
+def regroup(d_pairs, slots, rows, n_rows: int) -> torch.Tensor:
+    """The pair -> row scatter-add: d(src) [n_rows, 16] f32 from the
+    stream's gradient [budget, 16] (f32 or bf16). Only the live rows are
+    gathered and widened to f32; the sums are autograd's VJP of the
+    placement gather (a sorted ``index_put`` accumulate)."""
+    d_src = torch.zeros((n_rows, d_pairs.shape[1]), dtype=torch.float32,
+                        device=d_pairs.device)
+    return d_src.index_put_((rows,), d_pairs[slots].float(), accumulate=True)
 
 
 def composite(stream: PairStream, cfg: RasterizeConfig) -> torch.Tensor:
-    """K1 over every (view, tile) of the stream -> [V*n_tiles, 8, TILE^2];
-    differentiable w.r.t. ``stream.pairs`` through K2."""
-    return Composite.apply(stream.pairs, stream.tile_start, stream.tile_count,
-                           cfg.ntx, cfg.n_tiles, cfg.chunk)
+    """K1 over every (view, tile) of the stream -> [V*n_tiles, 8, tile^2];
+    differentiable w.r.t. ``stream.src`` through K2."""
+    return Composite.apply(stream.src, stream.pairs, stream.slots,
+                           stream.rows, stream.tile_start, stream.tile_count,
+                           check_config(cfg))
 
 
 def finish(tiles, overflow, V: int, bg_color, cfg: RasterizeConfig):
@@ -163,9 +223,9 @@ def rasterize_single(
 
 def _assemble(tiles: torch.Tensor, V: int, cfg: RasterizeConfig):
     """[V*n_tiles, 8, PX] -> (rgb [V,3,H,W], depth [V,1,H,W], alpha [V,1,H,W])."""
-    t = tiles.reshape(V, cfg.nty, cfg.ntx, 8, TILE, TILE)
-    t = t.permute(0, 3, 1, 4, 2, 5)  # [V,8,nty,TILE,ntx,TILE]
-    t = t.reshape(V, 8, cfg.nty * TILE, cfg.ntx * TILE)
+    t = tiles.reshape(V, cfg.nty, cfg.ntx, 8, cfg.tile, cfg.tile)
+    t = t.permute(0, 3, 1, 4, 2, 5)  # [V,8,nty,tile,ntx,tile]
+    t = t.reshape(V, 8, cfg.nty * cfg.tile, cfg.ntx * cfg.tile)
     t = t[:, :, : cfg.img_h, : cfg.img_w]
     return t[:, 0:3], t[:, 3:4], t[:, 4:5]
 

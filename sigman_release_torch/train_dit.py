@@ -173,7 +173,9 @@ def main(argv=None, *, body_model=None, template=None):
         logs = trainer.fit(loader, num_steps=num_steps,
                            log_every=cfg.log_every, ckpt_path=ckpt,
                            logger=logger, eval_loader=eval_loader,
-                           eval_every=cfg.eval_steps)
+                           eval_every=cfg.eval_steps,
+                           profile_dir=cfg.profile_dir or None,
+                           profile_every=cfg.profile_every)
     if mesh.rank == 0:
         print(f"[dit] {trainer.step} steps on {dev} ({mesh.world} "
               f"rank(s)); last {logs}", flush=True)

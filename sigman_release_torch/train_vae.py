@@ -89,7 +89,9 @@ def main(argv=None, *, body_model=None, template=None):
                            ckpt_path=os.path.join(cfg.workspace,
                                                   "vae_state.pt"),
                            logger=logger, eval_loader=eval_loader,
-                           eval_every=cfg.eval_steps)
+                           eval_every=cfg.eval_steps,
+                           profile_dir=cfg.profile_dir or None,
+                           profile_every=cfg.profile_every)
     if mesh.rank == 0:
         print(f"[vae] {trainer.step} steps on {dev} ({mesh.world} "
               f"rank(s)); last {logs}", flush=True)

@@ -101,7 +101,7 @@ from sigman_release_torch.training.vae_trainer import (
     no_sync,
     wrap_ddp,
 )
-from sigman_release_torch.utils.profiling import StepTimer
+from sigman_release_torch.utils.profiling import StepTimer, trace_if
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 RAW_KEYS = ("input", "UV_inital", "sapiens_input")
@@ -448,7 +448,9 @@ class DiTTrainer:
     def fit(self, loader, num_steps: Optional[int] = None,
             log_every: int = 10, ckpt_path: Optional[str] = None,
             logger=None, eval_loader=None,
-            eval_every: Optional[int] = None) -> Dict[str, float]:
+            eval_every: Optional[int] = None,
+            profile_dir: Optional[str] = None,
+            profile_every: int = 500) -> Dict[str, float]:
         """Train over ``loader`` epochs until ``num_steps`` micro-steps (one
         epoch of the shortest rank's loader if None; every rank must be
         given the same ``num_steps``): log every ``log_every``, save to
@@ -457,8 +459,10 @@ class DiTTrainer:
         batches and, with a ``latent_renderer``, one ``sample_eval`` on
         rank 0's first (on every rank under FSDP; its PNG goes to
         ``<workspace>/dit_sample_<step>.png``). Only rank 0 prints and logs.
-        Batches reach the device ``prefetch_to_device`` ahead. Returns the
-        last logs."""
+        Batches reach the device ``prefetch_to_device`` ahead. With
+        ``profile_dir`` every ``profile_every``-th step (counted from 0, the
+        first not) is traced into it (``utils/profiling.trace_if``). Returns
+        the last logs."""
         cfg = self.cfg
         lead = self.mesh.rank == 0
         if num_steps is None:
@@ -474,7 +478,9 @@ class DiTTrainer:
                 if self.step >= num_steps:
                     break
                 taken += 1
-                out = self.train_step({k: v.float() for k, v in batch.items()})
+                with trace_if(profile_dir, self.step, every=profile_every):
+                    out = self.train_step({k: v.float()
+                                           for k, v in batch.items()})
                 logs = {n: float(v) for n, v in out.items()}
                 timer.tick()
                 if self.step % log_every == 0 and lead:

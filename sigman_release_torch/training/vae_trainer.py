@@ -88,7 +88,7 @@ from sigman_release_torch.device import resolve_device
 from sigman_release_torch.inference import HEAD_INIT_STD, random_weights_
 from sigman_release_torch.losses.combined import VAELoss
 from sigman_release_torch.losses.gan import PatchDiscriminator, disc_layers
-from sigman_release_torch.losses.lpips import LPIPS
+from sigman_release_torch.losses.lpips import LPIPS, load_lpips_params
 from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.vae import (
     DiagonalGaussian,
@@ -106,7 +106,7 @@ from sigman_release_torch.parallel.mesh import (
 )
 from sigman_release_torch.renderer import GaussianRenderer
 from sigman_release_torch.training import checkpoint
-from sigman_release_torch.utils.profiling import StepTimer
+from sigman_release_torch.utils.profiling import StepTimer, trace_if
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 BATCH_KEYS = ("input", "UV_inital", "images_output", "masks_output",
@@ -287,11 +287,14 @@ class VAETrainer:
 
     # ------------------------------------------------------------------ init
 
-    def init(self, seed: int):
+    def init(self, seed: int, lpips_ckpt: Optional[str] = None):
         """Seeded weights: the VAE's by ``init_vae_``, the discriminator's
         and the LPIPS trunks' linear/conv N(0, 1/fan_in), LPIPS heads 1/C,
         logvar 0; the trainer's generator restarts from ``seed`` and the
-        mesh's data index."""
+        mesh's data index. ``lpips_ckpt``: a torchvision ``vgg16`` state
+        dict for the training LPIPS trunk (heads 1/C,
+        ``losses.lpips.load_lpips_params``), as the JAX ``init_state``; the
+        eval LPIPS stays seeded."""
         dev = self.device
 
         def gen(offset):
@@ -301,6 +304,9 @@ class VAETrainer:
         random_weights_(self.disc, gen(2))
         random_weights_(self.lpips.vgg, gen(3))
         self.lpips.init_heads()
+        loaded = load_lpips_params(lpips_ckpt)
+        if loaded is not None:
+            self.lpips.load_state_dict(loaded)
         if self.lpips_eval is not self.lpips:
             random_weights_(self.lpips_eval.backbone, gen(6))
             self.lpips_eval.init_heads()
@@ -496,7 +502,9 @@ class VAETrainer:
     def fit(self, loader, num_steps: Optional[int] = None,
             log_every: int = 10, ckpt_path: Optional[str] = None,
             logger=None, eval_loader=None,
-            eval_every: Optional[int] = None) -> Dict[str, float]:
+            eval_every: Optional[int] = None,
+            profile_dir: Optional[str] = None,
+            profile_every: int = 500) -> Dict[str, float]:
         """Alternate G and D steps by step parity once ``disc_start`` is
         reached, over ``loader`` epochs until ``num_steps`` (one epoch of
         the shortest rank's loader if None; every rank must be given the
@@ -506,8 +514,10 @@ class VAETrainer:
         ``<workspace>/eval_<step>.png``), keeping the best of each metric
         (lowest lpips, highest of the others), logged as ``best_*`` at the
         end. Only rank 0 prints and logs. Batches reach the device
-        ``prefetch_to_device`` ahead. Returns the last step's logs as
-        floats."""
+        ``prefetch_to_device`` ahead. With ``profile_dir`` every
+        ``profile_every``-th step (counted from 0, the first not) is traced
+        into it (``utils/profiling.trace_if``). Returns the last step's logs
+        as floats."""
         cfg = self.cfg
         lead = self.mesh.rank == 0
         if num_steps is None:
@@ -524,8 +534,9 @@ class VAETrainer:
                     break
                 taken += 1
                 use_d = self.step >= cfg.disc_start and self.step % 2 == 1
-                out = (self.train_step_d(batch) if use_d
-                       else self.train_step_g(batch))
+                with trace_if(profile_dir, self.step, every=profile_every):
+                    out = (self.train_step_d(batch) if use_d
+                           else self.train_step_g(batch))
                 logs = {n: float(v) for n, v in out.items()}
                 timer.tick()
                 if self.step % log_every == 0 and lead:

@@ -30,6 +30,10 @@ class MetricLogger:
         row.update({k: float(v) for k, v in metrics.items()})
         self._f.write(json.dumps(row) + "\n")
 
+    def summary(self, metrics: Dict[str, Any]) -> None:
+        """A run's summary: one row at step -1."""
+        self.log(-1, metrics)
+
     def close(self) -> None:
         if self._f is not None:
             self._f.close()

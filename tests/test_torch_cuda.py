@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DDP_LOSS_TOL, K1_TOL, K2_TOL, SMALL_GRAD_TOL,
-                        SMALL_LOSS_TOL, WORLD1_TOL, _pair_rows, cull_cases,
-                        grad_tiles, hand_streams, k1_diff, k2_diff,
-                        small_dit_step_diff, small_train_step_diff)
+from chip_smoke import (DDP_LOSS_TOL, K1_TOL, K2_BF16_TOL, K2_TOL,
+                        SMALL_GRAD_TOL, SMALL_LOSS_TOL, WORLD1_TOL, _pair_rows,
+                        cull_cases, grad_tiles, hand_streams, k1_diff,
+                        k2_bf16_excess, k2_diff, small_dit_step_diff,
+                        small_train_step_diff)
 from sigman_release_torch.ops.rasterizer import backward_tiles as k2
 from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 from sigman_release_torch.ops.rasterizer import (
@@ -150,7 +151,8 @@ def test_kernels_match_plain_on_cull_cases(cuda_device, case):
         assert (torch.from_numpy(count)[order].diff() <= 0).all()
 
 
-def test_cull_masks_on_the_card_cover_the_mirror(cuda_device):
+@pytest.mark.parametrize("tile", [32, 16])
+def test_cull_masks_on_the_card_cover_the_mirror(cuda_device, tile):
     """The kernels' cull (``cull_bits`` in csrc/tile_common.cuh, with its
     fast intrinsics and nvcc's contractions), read through the test entry
     point ``cull_masks_launch``, on seeded rows: means on and far off the
@@ -158,7 +160,8 @@ def test_cull_masks_on_the_card_cover_the_mirror(cuda_device):
     floor up, 2% of conics not positive-definite. Each kernel mask is a
     superset of the PyTorch mirror's (``cull_rects``, which the CPU tests
     hold exact), every warp rectangle where ``_alpha`` gives a pixel
-    alpha > 0 keeps its bit, and most bits are clear."""
+    alpha > 0 keeps its bit, and most bits are clear; a 16-px tile's masks
+    use only its 8 rectangles' bits."""
     rng = np.random.default_rng(4)
     k = 8192
     rows = _pair_rows(rng.uniform(-120, 150, k), rng.uniform(-120, 150, k),
@@ -168,29 +171,101 @@ def test_cull_masks_on_the_card_cover_the_mirror(cuda_device):
                       rng.uniform(ALPHA_MIN, 1.0, k), rng)
     broken = rng.random(k) < 0.02               # mostly not positive-definite
     rows[broken, 2:5] = rng.uniform(-1, 1, (int(broken.sum()), 3))
-    origin = (32 * rng.integers(0, 4, (k, 2))).astype(np.float32)
+    origin = (tile * rng.integers(0, 128 // tile, (k, 2))).astype(np.float32)
     feats = torch.from_numpy(rows).to(cuda_device)
     orig = torch.from_numpy(origin).to(cuda_device)
-    masks = torch.zeros(k, dtype=torch.int32, device=cuda_device)
+    masks = torch.zeros(k, dtype=torch.int64, device=cuda_device)
+    masks32 = torch.zeros(k, dtype=torch.int32, device=cuda_device)
     rc = k1._library().cull_masks_launch(
-        feats.data_ptr(), orig.data_ptr(), masks.data_ptr(), k,
+        feats.data_ptr(), orig.data_ptr(), masks32.data_ptr(), k, tile,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 0
-    bit = torch.arange(32, device=cuda_device)
+    masks = masks32.long() & 0xFFFFFFFF
+    n_rects = (tile // 8) * (tile // 4)
+    assert (masks >> n_rects == 0).all()
+    bit = torch.arange(n_rects, device=cuda_device)
     kept = ((masks[:, None] >> bit) & 1).bool()             # [k, rect]
-    mirror = k1.cull_rects(feats, orig[:, 0], orig[:, 1])
+    mirror = k1.cull_rects(feats, orig[:, 0], orig[:, 1], tile)
     assert not (mirror & ~kept).any(), (mirror & ~kept).any(-1).nonzero()[:5]
     ox, oy = orig[:, :1], orig[:, 1:]
-    _, _, basis = k1.pixel_frame(1, 1, 1, cuda_device)
+    _, _, basis = k1.pixel_frame(1, 1, 1, cuda_device, tile)
     alpha, _ = k1._alpha(feats[:, None], ox, oy, basis,
                          torch.ones((k, 1), dtype=torch.bool,
                                     device=cuda_device))
-    hit = (k1.rect_view(alpha[:, 0]) > 0).any(-1)           # [k, rect]
+    hit = (k1.rect_view(alpha[:, 0], tile) > 0).any(-1)     # [k, rect]
     assert not (hit & ~kept).any()
     ca, cb, cc = feats[:, 2], feats[:, 3], feats[:, 4]
     not_pd = ~((ca > 0) & (cc > 0) & (ca * cc - cb * cb > 0))
     assert not_pd.sum().item() > 0 and kept[not_pd].all()
     assert kept.float().mean().item() < 0.5
+
+
+def _streams(tile, rng):
+    """The hand-made streams and the four cull cases at ``tile``, each
+    (name, pairs, tile_start, tile_count, ntx, tiles_per_view)."""
+    yield ("hand",) + hand_streams(rng, tile=tile) + (2, 4)
+    for name, case in cull_cases(rng, tile=tile).items():
+        yield (name,) + case
+
+
+def _on_card(dev, *arrays):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_kernel_knobs_match_plain(cuda_device, tile):
+    """K1 and K2 at ``tile`` on the hand-made streams (a segment that
+    straddles chunks, a Gaussian on a tile edge) and the cull cases against
+    their plain versions (K1_TOL; K2_TOL per column); with
+    ``early_stop=False`` both give the same output bit for bit; K2's bf16
+    output is its f32 output rounded to nearest even, and within one bf16
+    rounding of the plain version (``K2_BF16_TOL``). The launches are
+    counted by variant."""
+    rng = np.random.default_rng(6)
+    for name, pairs, start, count, ntx, tpv in _streams(tile, rng):
+        args = _on_card(cuda_device, pairs, start, count)
+        kw = dict(ntx=ntx, tiles_per_view=tpv, chunk=128, tile=tile)
+        grad = torch.from_numpy(grad_tiles(rng, start.shape[0], tile)).to(
+            cuda_device)
+        v1 = dict(k1.forward_tiles.launches_by_variant)
+        v2 = dict(k2.backward_tiles.launches_by_variant)
+        fwd = k1.forward_tiles(*args, **kw)
+        fwd_off = k1.forward_tiles(*args, early_stop=False, **kw)
+        out = k2.backward_tiles(*args, fwd, grad, **kw)
+        out_off = k2.backward_tiles(*args, fwd, grad, early_stop=False, **kw)
+        out_bf16 = k2.backward_tiles(*args, fwd, grad, out_bf16=True, **kw)
+        ref = k1.forward_tiles_plain(*args, **kw)
+        ref2 = k2.backward_tiles_plain(*args, fwd, grad, **kw)
+        torch.cuda.synchronize()
+        assert k1_diff(fwd, ref) <= K1_TOL, name
+        assert k2_diff(out, ref2)[1] <= K2_TOL, name
+        assert torch.equal(fwd, fwd_off) and torch.equal(out, out_off), name
+        assert out_bf16.dtype == torch.bfloat16
+        assert torch.equal(out_bf16, out.to(torch.bfloat16)), name
+        assert k2_bf16_excess(out_bf16, ref2) <= K2_BF16_TOL, name
+        b1 = k1.forward_tiles.launches_by_variant
+        b2 = k2.backward_tiles.launches_by_variant
+        assert b1.get("early_stop_off", 0) == v1.get("early_stop_off", 0) + 1
+        assert b2.get("bf16", 0) == v2.get("bf16", 0) + 1
+        if tile == 16:
+            assert b1["tile16"] == v1.get("tile16", 0) + 2
+            assert b2["tile16"] == v2.get("tile16", 0) + 3
+        if name == "hand":
+            end = int(start[2] + count[2])
+            assert (out[end - 5:end] == 0).all() and (out[:, 10:] == 0).all()
+            # the Gaussian centred on pixel (5, 7) of tile 3
+            assert fwd[3, 4, 7 * tile + 5].item() > 0.79
+
+
+def test_kernels_reject_other_tiles(cuda_device):
+    pairs = torch.zeros((128, 16), device=cuda_device)
+    idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    tiles = torch.zeros((1, 8, 24 * 24), device=cuda_device)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        k1.forward_tiles(pairs, idx, idx, ntx=1, tiles_per_view=1, tile=24)
+    with pytest.raises(ValueError, match="tile must be one of"):
+        k2.backward_tiles(pairs, idx, idx, tiles, tiles, ntx=1,
+                          tiles_per_view=1, tile=24)
 
 
 def test_backward_tiles_rejects_bad_inputs(cuda_device):

@@ -131,8 +131,8 @@ def _both_bins(g, cv, cvp, per_view, budget_factor=5, mtg=9, big_win=6):
                               TH, TH, 64, 64)
     tb = tbin.bin_gaussians(tproj, _t(g["colors"]), _t(g["opacity"]), 64, 64,
                             **kw)
-    tpairs = tbin.place_pairs(tb.feats16, tb.feats_big, tb.valid_prefix,
-                              tb.pay_prefix, tb.dims)
+    tpairs, _, _ = tbin.place_pairs(torch.cat([tb.feats16, tb.feats_big]),
+                                    tb.valid_prefix, tb.pay_prefix, tb.dims)
     return jb, jpairs, tb, tpairs
 
 
