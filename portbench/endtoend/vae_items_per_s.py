@@ -1,0 +1,5 @@
+"""Items trained in the window (B x G steps completed) over the whole window."""
+
+
+def read(r):
+    return r.units / r.window_s

@@ -1,0 +1,5 @@
+"""The FLOPs a request requires (portbench.flops) over the profiler window's time at the bf16 peak, %."""
+
+
+def read(t):
+    return t.mfu()
