@@ -19,6 +19,7 @@ import torch
 
 from sigman_release_torch.config import Config
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
+from sigman_release_torch.utils.timing import NULL_TIMER
 
 
 class SamplePipeline:
@@ -36,8 +37,14 @@ class SamplePipeline:
         noise: Optional[torch.Tensor] = None,
         num_inference_steps: int = 30,
         guidance_scale: float = 3.5,
+        timer=NULL_TIMER,
     ) -> torch.Tensor:
-        """Run the CFG DDIM loop. Returns latents [B,C,h,w] / scaling factor."""
+        """Run the CFG DDIM loop. Returns latents [B,C,h,w] / scaling factor.
+
+        ``timer`` receives a "ddim_step" span per step and inside it a
+        "ddim_update" span (the CFG combine and the scheduler's step); a
+        timer other than ``NULL_TIMER`` is also passed to ``dit`` as its
+        ``timer`` keyword."""
         cfg = self.cfg
         b = cond_feats.shape[0]
         shape = (b, cfg.latent_channels, cfg.sample_height, cfg.sample_width)
@@ -54,13 +61,17 @@ class SamplePipeline:
         cond2 = torch.cat([torch.zeros_like(cond_feats), cond_feats]) \
             if use_cfg else cond_feats
 
+        kw = {} if timer is NULL_TIMER else {"timer": timer}
         for t, tp in zip(ts, ts_prev):
-            lat = torch.cat([latents, latents]) if use_cfg else latents
-            tb = torch.full((lat.shape[0],), t, dtype=torch.int32,
-                            device=latents.device)
-            v = dit(lat, cond2, tb).float()
-            if use_cfg:
-                v_uncond, v_cond = v.chunk(2)
-                v = v_uncond + guidance_scale * (v_cond - v_uncond)
-            latents = self.scheduler.step(v, t, tp, latents)
+            with timer("ddim_step"):
+                lat = torch.cat([latents, latents]) if use_cfg else latents
+                tb = torch.full((lat.shape[0],), t, dtype=torch.int32,
+                                device=latents.device)
+                v = dit(lat, cond2, tb, **kw)
+                with timer("ddim_update"):
+                    v = v.float()
+                    if use_cfg:
+                        v_uncond, v_cond = v.chunk(2)
+                        v = v_uncond + guidance_scale * (v_cond - v_uncond)
+                    latents = self.scheduler.step(v, t, tp, latents)
         return latents / cfg.vae_scaling_factor

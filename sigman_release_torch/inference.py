@@ -226,8 +226,9 @@ class AvatarPipeline:
                timer=NULL_TIMER) -> torch.Tensor:
         """image [B,3,S,S] ImageNet-normalized -> latents [B,Cl,h,w], divided
         by ``vae_scaling_factor`` (once, in the sampler): the conditioning
-        encode ("encoder" span) and the CFG DDIM loop ("dit_sampling") from
-        ``noise`` (default: a draw from ``generator``)."""
+        encode ("encoder" span) and the CFG DDIM loop ("dit_sampling", and
+        within it the sampler's and the DiT's spans) from ``noise``
+        (default: a draw from ``generator``)."""
         cfg = self.cfg
         with timer("encoder"):
             cond = self.encoder(image.to(self.device))
@@ -235,7 +236,7 @@ class AvatarPipeline:
             return self.sampler.sample_latents(
                 self.dit, cond, generator=generator, noise=noise,
                 num_inference_steps=steps or cfg.num_inference_steps,
-                guidance_scale=cfg.guidance_scale)
+                guidance_scale=cfg.guidance_scale, timer=timer)
 
     @torch.no_grad()
     def __call__(self, image: torch.Tensor, smpl_vec: Optional[torch.Tensor],

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sigman_release_torch.config import Config
+from sigman_release_torch.utils.timing import NULL_TIMER
 
 
 def timestep_sinusoid(t: torch.Tensor, dim: int, flip: bool = True,
@@ -199,16 +200,25 @@ class DiTBlock(nn.Module):
         self.norm2 = AdaLNZero(dim, temb_dim)
         self.ff = FeedForward(dim)
 
-    def forward(self, image, cond, temb, rope):
-        n_img, n_cond, g_img, g_cond = self.norm1(image, cond, temb)
-        a_img, a_cond = self.attn1(n_img, n_cond, rope)
-        image = image + g_img * a_img
-        cond = cond + g_cond * a_cond
+    def forward(self, image, cond, temb, rope, timer=NULL_TIMER):
+        """``timer`` receives "dit_adaln" (each AdaLN-Zero norm and each
+        gated residual add: four a block), "dit_attention" and "dit_ff"
+        (the joint concatenation and the feed-forward)."""
+        with timer("dit_adaln"):
+            n_img, n_cond, g_img, g_cond = self.norm1(image, cond, temb)
+        with timer("dit_attention"):
+            a_img, a_cond = self.attn1(n_img, n_cond, rope)
+        with timer("dit_adaln"):
+            image = image + g_img * a_img
+            cond = cond + g_cond * a_cond
 
-        n_img, n_cond, g_img, g_cond = self.norm2(image, cond, temb)
+        with timer("dit_adaln"):
+            n_img, n_cond, g_img, g_cond = self.norm2(image, cond, temb)
         s = cond.shape[1]
-        ff = self.ff(torch.cat([n_cond, n_img], dim=1))
-        return image + g_img * ff[:, s:], cond + g_cond * ff[:, :s]
+        with timer("dit_ff"):
+            ff = self.ff(torch.cat([n_cond, n_img], dim=1))
+        with timer("dit_adaln"):
+            return image + g_img * ff[:, s:], cond + g_cond * ff[:, :s]
 
 
 class PatchEmbed(nn.Module):
@@ -269,9 +279,12 @@ class DiTModel(nn.Module):
         self.norm_out = AdaLayerNorm(dim, cfg.time_embed_dim)
         self.proj_out = nn.Linear(dim, cfg.patch_size ** 2 * cfg.out_channels)
 
-    def forward(self, latent, cond_feats, timestep):
+    def forward(self, latent, cond_feats, timestep, timer=NULL_TIMER):
         """latent [B,C,h,w], cond_feats [B,Cc,hc,wc], timestep [B] ->
-        [B,out_channels,h,w] in the parameters' dtype."""
+        [B,out_channels,h,w] in the parameters' dtype. ``timer`` receives
+        "dit_embed" (the time and patch embeddings and the position tables,
+        their host-to-device copies included) and, where the blocks are not
+        recomputed, each block's spans (``DiTBlock.forward``)."""
         c = self.cfg
         dtype = self.proj_out.weight.dtype
         latent, cond_feats = latent.to(dtype), cond_feats.to(dtype)
@@ -279,20 +292,21 @@ class DiTModel(nn.Module):
         p = c.patch_size
         gh, gw = h // p, w // p
 
-        temb = self.time_embedding(
-            timestep_sinusoid(timestep, c.hidden_dim).to(dtype))
-        image, cond = self.patch_embed(latent, cond_feats)
-        rope: Optional[tuple] = None
-        if c.use_rotary_positional_embeddings:
-            rope = tuple(torch.as_tensor(a, device=latent.device)
-                         for a in rope_2d(c.attention_head_dim, gh, gw))
+        with timer("dit_embed"):
+            temb = self.time_embedding(
+                timestep_sinusoid(timestep, c.hidden_dim).to(dtype))
+            image, cond = self.patch_embed(latent, cond_feats)
+            rope: Optional[tuple] = None
+            if c.use_rotary_positional_embeddings:
+                rope = tuple(torch.as_tensor(a, device=latent.device)
+                             for a in rope_2d(c.attention_head_dim, gh, gw))
         remat = c.gradient_checkpointing and torch.is_grad_enabled()
         for block in self.transformer_blocks:
             if remat:
                 image, cond = checkpoint(block, image, cond, temb, rope,
                                          use_reentrant=False)
             else:
-                image, cond = block(image, cond, temb, rope)
+                image, cond = block(image, cond, temb, rope, timer=timer)
 
         joint = self.norm_final(torch.cat([cond, image], dim=1))
         image = self.norm_out(joint[:, cond.shape[1]:], temb)

@@ -9,16 +9,17 @@ a generator or discriminator step. ``dit``: ``DiTTrainer`` at the ``dit``
 preset's full width on 8 synthetic items, raw path
 (``dit_trainer.synthetic_setup``, the set-up of phase 10). Takes one
 warm-up step and times it, then records two more with ``torch.profiler``
-(CPU and CUDA activities), the device synchronised at both ends of each
-span. Prints the wall time per step, the device-busy share (the union of
-kernel intervals over the wall time), each span's wall time and device
-time (the union of the kernel intervals inside the span's window, so that
-the kernels autograd launches from its own thread count where they run),
-the 30 kernels and operators with the most device time, and
-last the floating-point operations of each span (one more step under
-``torch.utils.flop_counter.FlopCounterMode``, which counts matmuls,
-convolutions and attention: forward, recompute and backward). Needs a CUDA
-device.
+(CPU and CUDA activities) with the port's ``StageTimer``: each span a
+``span:<name>`` range, the device synchronised at both ends of each
+outermost span (these steps open no nested one). Prints the wall time per
+step, the device-busy share (the union of kernel intervals over the wall
+time), each span's wall time and device time (the union of the kernel
+intervals inside the span's window, so that the kernels autograd launches
+from its own thread count where they run), the 30 kernels and operators
+with the most device time, and last the floating-point operations of
+each span (one more step under ``torch.utils.flop_counter.FlopCounterMode``,
+which counts matmuls, convolutions and attention: forward, recompute and
+backward). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -55,9 +56,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     steps = 2
 
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.utils.timing import StageTimer
 
     if args.kind == "dit":
         from sigman_release_torch.training import dit_trainer
@@ -80,25 +82,20 @@ def main(argv=None):
     print(f"[profile] warm-up {args.kind} step (profiler off): "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
-    @contextlib.contextmanager
-    def span(name):
-        with record_function(f"span:{name}"):
-            torch.cuda.synchronize()
-            try:
-                yield
-            finally:
-                torch.cuda.synchronize()
-
+    timer = StageTimer(torch.device("cuda"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(batch, timer=span)
+            step(batch, timer=timer)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
+    # the device's timeline also carries each span's range as an
+    # annotation: not a kernel
     kernels = sorted((e.time_range.start, e.time_range.end) for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.name.startswith("span:"))
     busy = _busy_us(kernels)
     print(f"[profile] {steps} {args.kind} steps: "
           f"{wall_us / steps / 1e3:.1f} "

@@ -529,7 +529,8 @@ class VAETrainer:
         while self.step < num_steps:
             host = ({k: b[k] for k in BATCH_KEYS} for b in loader)
             taken = 0
-            for batch in prefetch_to_device(host, self.mesh, self.device):
+            for batch in timer.timed(prefetch_to_device(
+                    host, self.mesh, self.device)):
                 if self.step >= num_steps:
                     break
                 taken += 1
@@ -542,7 +543,9 @@ class VAETrainer:
                 if self.step % log_every == 0 and lead:
                     summ = timer.summary()
                     print(f"[vae] step {self.step} {logs} "
-                          f"({summ.get('step_time_mean_s', 0.0):.2f}s/step)",
+                          f"({summ.get('step_time_mean_s', 0.0):.2f}s/step, "
+                          f"data wait {summ.get('data_wait_mean_s', 0.0):.3f}s"
+                          f" = {summ.get('data_wait_share', 0.0):.1%})",
                           flush=True)
                     if logger is not None:
                         logger.log(self.step, {**logs, **summ})

@@ -8,7 +8,9 @@ and traced step) of every ``every``-th step, and ``StepTimer`` keeps the
 step latency with percentile summaries: ``tick`` once per step;
 ``summary`` gives the mean, p50, p95 and rate over the last ``window``
 steps. On a CUDA device the caller synchronises before ``tick`` when the
-step's device work must be inside the interval.
+step's device work must be inside the interval. Batches drawn through
+``StepTimer.timed`` add the host's wait for the loader: its mean per step
+and its share of the step time.
 """
 
 from __future__ import annotations
@@ -56,7 +58,23 @@ class StepTimer:
     def __init__(self, window: int = 200):
         self.window = window
         self.samples: list[float] = []
+        self.waits: list[float] = []
         self._last: Optional[float] = None
+
+    def timed(self, batches):
+        """Yield from ``batches``, keeping the host's time blocked in each
+        ``next()`` (the wait for the loader) for ``summary``."""
+        it = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            if len(self.waits) > self.window:
+                self.waits.pop(0)
+            yield batch
 
     def tick(self) -> Optional[float]:
         """Call once per step; returns the last step's duration (s)."""
@@ -74,9 +92,16 @@ class StepTimer:
         if not self.samples:
             return {}
         arr = np.asarray(self.samples)
-        return {
+        out = {
             "step_time_mean_s": float(arr.mean()),
             "step_time_p50_s": float(np.percentile(arr, 50)),
             "step_time_p95_s": float(np.percentile(arr, 95)),
             "steps_per_s": float(1.0 / max(arr.mean(), 1e-9)),
         }
+        if self.waits:
+            waits = self.waits[-len(self.samples):]
+            out["data_wait_mean_s"] = float(np.mean(waits))
+            out["data_wait_share"] = float(sum(waits)
+                                           / max(arr[-len(waits):].sum(),
+                                                 1e-9))
+        return out
