@@ -164,6 +164,15 @@ Phases (any failure exits non-zero before the final line):
              K2 training); (e) LPIPS from seeded weight files, card
              against CPU. Files under ``build/``, removed at the end.
 
+18. knn       — last: the KNN base scale kernel (``ops/csrc/knn.cu``) on
+             ``KNN_ITEMS`` items of phase 3's template Gaussians, each moved
+             by a seeded offset: one launch against the plain version per
+             item (equal bit for bit, since the kernel repeats its
+             rounding), the kernel's ms (CUDA events over ``KNN_REPS``
+             launches), the plain version's and the f32-issue bound at the
+             published peak. Every path that counts K1 launches counts the
+             KNN's too (one a render through ``GaussianRenderer``).
+
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
 the hits plus a staging pass per row; without the cull: every needed
@@ -699,6 +708,7 @@ def main():
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.inference import (
         AvatarPipeline, normalize_image, orbit_rig)
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer.render import (
@@ -715,7 +725,7 @@ def main():
     # ---- 1. build -----------------------------------------------------------
     clock.start("build")
     t0 = time.perf_counter()
-    cuda_build.build([k1.SOURCE, k2.SOURCE])
+    cuda_build.build([k1.SOURCE, k2.SOURCE, knn.SOURCE])
     print(f"[build] {len(cuda_build.build_logs)} source(s) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in cuda_build.build_logs.items():
@@ -771,24 +781,29 @@ def main():
     timer = StageTimer(dev)
     torch.cuda.reset_peak_memory_stats()
     k1.forward_tiles.launches = 0
+    knn.mean_knn_dist2.launches = 0
     t0 = time.perf_counter()
     res = pipe(image, smpl_vec, cv, cvp, generator=gen, steps=30, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = k1.forward_tiles.launches
+    knn_serve = knn.mean_knn_dist2.launches
     render = res["render"]
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / wall:.1f}%)"
                        for k, v in timer.seconds.items())
     print(f"[main] request {wall * 1e3:.1f} ms: {stages}")
     print(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB; forward_tiles launches {launches}; overflow "
-          f"{render['overflow'].tolist()}")
+          f"GiB; forward_tiles launches {launches}, mean_knn_dist2 launches "
+          f"{knn_serve}; overflow {render['overflow'].tolist()}")
     alpha = render["alpha"]
     print(f"[main] alpha mean {alpha.mean().item():.4f}, coverage (alpha > "
           f"0.5) {(alpha > 0.5).float().mean().item():.4f}; image "
           f"{tuple(render['image'].shape)}", flush=True)
     if launches < 1:
         fail("the main path did not launch forward_tiles")
+    if knn_serve != 1:
+        fail(f"the main path launched mean_knn_dist2 {knn_serve} times, not "
+             f"once for its one render")
     hw = cfg.output_size
     if tuple(render["image"].shape) != (1, N_VIEWS, 3, hw, hw):
         fail(f"unexpected image shape {tuple(render['image'].shape)}")
@@ -879,6 +894,7 @@ def main():
     tmpl = template_phase(dev, clock)
     fsdp = fsdp_phase(dev, clock)
     knobs = knobs_phase(dev, body, template, clock, serve)
+    knn_held = knn_phase(dev, template, clock)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -895,6 +911,14 @@ def main():
                "template_remat": tmpl["k1_remat"]}
     tmpl_k2 = {"template": tmpl["k2_template"],
                "template_remat": tmpl["k2_remat"]}
+    # the same paths' KNN launches; phase 18's own are left out
+    knn_paths = {"serve": knn_serve, "train": train["knn_launches"],
+                 "dit_train": dit["knn_launches"],
+                 "vae_resume": ckpt["knn_resume"],
+                 "vae_eval": ckpt["knn_eval"],
+                 "ddp": ddp["mean_knn_dist2"], **data["knn"], **tmpl["knn"],
+                 "fsdp": fsdp["k1"]["knn_launches"],
+                 "knobs": knobs["knn_launches"]}
     kernels = [{
         "name": "forward_tiles",
         "route": "cuda",
@@ -994,6 +1018,15 @@ def main():
         "tile16": knobs["k2_tile16"],
         "early_stop_off": knobs["k2_early_stop_off"],
         "bf16": knobs["k2_bf16"],
+    }, {
+        "name": "mean_knn_dist2",
+        "route": "cuda",
+        "source": "sigman_release_torch/ops/csrc/knn.cu",
+        "replaces": None,
+        "launches": sum(knn_paths.values()),
+        "launches_by_path": knn_paths,
+        **knn_held,
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1046,6 +1079,7 @@ def train_phases(dev, body, template, clock):
     import torch
 
     from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
@@ -1116,11 +1150,13 @@ def train_phases(dev, body, template, clock):
     torch.cuda.reset_peak_memory_stats()
     k1.forward_tiles.launches = 0
     k2.backward_tiles.launches = 0
+    knn.mean_knn_dist2.launches = 0
     step_ms, spans = [], []
     try:
         for i in range(G_STEPS):
             timer = StageTimer(dev)
             c1, c2 = k1.forward_tiles.launches, k2.backward_tiles.launches
+            ck = knn.mean_knn_dist2.launches
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logs = trainer.train_step_g(batch, timer=timer)
@@ -1130,10 +1166,15 @@ def train_phases(dev, body, template, clock):
             logs = {k: float(v) for k, v in logs.items()}
             n1 = k1.forward_tiles.launches - c1
             n2 = k2.backward_tiles.launches - c2
+            nk = knn.mean_knn_dist2.launches - ck
             print(f"[train] G step {i + 1}: {step_ms[-1]:.1f} ms, K1 "
-                  f"launches {n1}, K2 launches {n2}, logs {logs}", flush=True)
+                  f"launches {n1}, K2 launches {n2}, KNN launches {nk}, logs "
+                  f"{logs}", flush=True)
             if n1 < 1 or n2 < 1:
                 fail(f"G step {i + 1} did not launch both kernels ({n1}, {n2})")
+            if nk != 1:
+                fail(f"G step {i + 1} launched mean_knn_dist2 {nk} times, not "
+                     f"once for its one render")
             if not all(np.isfinite(v) for v in logs.values()):
                 fail(f"non-finite loss in G step {i + 1}: {logs}")
         snap = [p.detach().clone() for p in trainer.params_g]
@@ -1145,6 +1186,7 @@ def train_phases(dev, body, template, clock):
     finally:
         render_lib.backward_tiles = real_backward
     k1_train, k2_train = k1.forward_tiles.launches, k2.backward_tiles.launches
+    knn_train = knn.mean_knn_dist2.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     dlogs = {k: float(v) for k, v in dlogs.items()}
     med = statistics.median(step_ms[1:])
@@ -1222,6 +1264,7 @@ def train_phases(dev, body, template, clock):
         fail(f"test_tiny G step on the GPU differs from the CPU: loss "
              f"{loss_rel}, gradient {grad_rel}")
     return {"k1_launches": k1_train, "k2_launches": k2_train,
+            "knn_launches": knn_train,
             "g_step_ms": med, "k2_err": k2_err, "k2_rel": k2_rel, "k2_ms": k2_ms,
             "k2_kernel_ms": k2_kernel_ms, "k2_plain_ms": k2_plain_ms,
             "k2_bound": k2_bound, "k2_by": k2_by,
@@ -1331,6 +1374,7 @@ def ckpt_phase(dev, body, template, clock):
     from sigman_release_torch.data.loader import DataLoader
     from sigman_release_torch.losses.gan import PatchDiscriminator
     from sigman_release_torch.models.vae import VAEModel
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
@@ -1380,9 +1424,11 @@ def ckpt_phase(dev, body, template, clock):
         del saved, got
         k1.forward_tiles.launches = 0
         k2.backward_tiles.launches = 0
+        knn.mean_knn_dist2.launches = 0
         loss_b = fresh.train_step_g(batch, noise)["loss"].item()
         k1_resume, k2_resume = (k1.forward_tiles.launches,
                                 k2.backward_tiles.launches)
+        knn_resume = knn.mean_knn_dist2.launches
         num = sum(((p.detach() - a) ** 2).sum().item()
                   for p, a in zip(fresh.params_g, after_a))
         den = sum((a ** 2).sum().item() for a in after_a)
@@ -1476,6 +1522,7 @@ def ckpt_phase(dev, body, template, clock):
     fresh.eval_step = timed_eval_step
     render_lib.forward_tiles = capturing_forward
     k1.forward_tiles.launches = 0
+    knn.mean_knn_dist2.launches = 0
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1485,7 +1532,7 @@ def ckpt_phase(dev, body, template, clock):
     finally:
         render_lib.forward_tiles = real_forward
         del fresh.eval_step
-    k1_eval = k1.forward_tiles.launches
+    k1_eval, knn_eval = k1.forward_tiles.launches, knn.mean_knn_dist2.launches
     print(f"[eval] evaluate over {EVAL_ITEMS} held-out items at batch 1 "
           f"({cfg.num_views} views at {cfg.output_size}^2, LPIPS "
           f"{cfg.eval_lpips_net}) {eval_ms:.1f} ms, of which eval_step "
@@ -1526,6 +1573,7 @@ def ckpt_phase(dev, body, template, clock):
         fail(f"the resumed test_tiny DiT accumulation differs: {diff}, "
              f"{counts}")
     return {"k1_resume": k1_resume, "k2_resume": k2_resume,
+            "knn_resume": knn_resume, "knn_eval": knn_eval,
             "k1_eval": k1_eval, "k1_err": held["err"], "k1_ms": held["ms"],
             "k1_plain_ms": held["plain_ms"], "k1_bound": held["new"][0],
             "k1_bound_old": held["old"][0]}
@@ -1585,6 +1633,7 @@ def dit_phases(dev, body, template, clock):
     import torch
 
     from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
     from sigman_release_torch.training.dit_trainer import (
@@ -1625,6 +1674,7 @@ def dit_phases(dev, body, template, clock):
 
     torch.cuda.reset_peak_memory_stats()
     k1.forward_tiles.launches = 0
+    knn.mean_knn_dist2.launches = 0
     step_ms, spans, losses = [], [], []
     for i in range(DIT_STEPS):
         timer = StageTimer(dev)
@@ -1676,14 +1726,14 @@ def dit_phases(dev, body, template, clock):
         ev_s = time.perf_counter() - t0
     finally:
         render_lib.forward_tiles = real_forward
-    k1_dit = k1.forward_tiles.launches
+    k1_dit, knn_dit = k1.forward_tiles.launches, knn.mean_knn_dist2.launches
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in
                        timer.seconds.items())
     print(f"[dit] eval loss {eval_loss:.6f}; sample_eval "
           f"({cfg.num_inference_steps} CFG steps, {cfg.num_views} views at "
           f"{cfg.output_size}^2) {ev_s * 1e3:.1f} ms: {stages}; sample PSNR "
-          f"{ev['sample_psnr']:.4f}; forward_tiles launches {k1_dit}",
-          flush=True)
+          f"{ev['sample_psnr']:.4f}; forward_tiles launches {k1_dit}, "
+          f"mean_knn_dist2 launches {knn_dit}", flush=True)
     if not (np.isfinite(eval_loss) and np.isfinite(ev["sample_psnr"])):
         fail(f"non-finite eval: loss {eval_loss}, {ev}")
     if k1_dit < 1:
@@ -1711,7 +1761,8 @@ def dit_phases(dev, body, template, clock):
     if not loss_rel <= SMALL_LOSS_TOL or not grad_rel <= SMALL_GRAD_TOL:
         fail(f"test_tiny DiT step on the GPU differs from the CPU: loss "
              f"{loss_rel}, gradient {grad_rel}")
-    return {"k1_launches": k1_dit, "k1_err": held["err"], "k1_ms": held["ms"],
+    return {"k1_launches": k1_dit, "knn_launches": knn_dit,
+            "k1_err": held["err"], "k1_ms": held["ms"],
             "k1_plain_ms": held["plain_ms"], "k1_bound": held["new"][0],
             "k1_bound_old": held["old"][0]}
 
@@ -1832,6 +1883,7 @@ def ddp_phase(dev, body, template, clock):
     import torch.distributed as dist
 
     from sigman_release_torch.config import PRESETS
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.parallel import cases, launch
@@ -1873,19 +1925,23 @@ def ddp_phase(dev, body, template, clock):
         mesh = make_mesh()
         k1.forward_tiles.launches = 0
         k2.backward_tiles.launches = 0
+        knn.mean_knn_dist2.launches = 0
         wrapped = world1_steps(make_vae(mesh), "vae", *vae_runs,
                                against=bare)
         launches = {"forward_tiles": k1.forward_tiles.launches,
-                    "backward_tiles": k2.backward_tiles.launches}
+                    "backward_tiles": k2.backward_tiles.launches,
+                    "mean_knn_dist2": knn.mean_knn_dist2.launches}
         del batch
         out_vae = world1_report("vae_b", bare, again, wrapped)
         print(f"[ddp] vae_b under DDP: K1 launches "
               f"{launches['forward_tiles']}, K2 launches "
-              f"{launches['backward_tiles']} (4 G steps, 1 D step)",
+              f"{launches['backward_tiles']}, KNN launches "
+              f"{launches['mean_knn_dist2']} (4 G steps, 1 D step)",
               flush=True)
-        if launches != {"forward_tiles": 5, "backward_tiles": 4}:
-            fail(f"the vae_b steps under DDP launched K1 / K2 "
-                 f"{launches}, not 5 / 4 times")
+        if launches != {"forward_tiles": 5, "backward_tiles": 4,
+                        "mean_knn_dist2": 5}:
+            fail(f"the vae_b steps under DDP launched K1 / K2 / KNN "
+                 f"{launches}, not 5 / 4 / 5 times")
 
         dcfg = PRESETS[DIT_PRESET]
         draws = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in
@@ -2100,11 +2156,11 @@ def fsdp_phase(dev, clock):
     gc.collect()                # FSDP's module state holds cycles
     torch.cuda.empty_cache()
     fsdp_world1_report(res)
-    k1_fsdp = res["sample_launches"]
+    k1_fsdp, knn_fsdp = res["sample_launches"], res["sample_knn_launches"]
     print(f"[fsdp] (a) {a_s:.1f} s; sample_eval under FSDP after the steps "
           f"({cfg.num_inference_steps} CFG steps): sample PSNR "
           f"{res['sample']['sample_psnr']:.4f}, forward_tiles launches "
-          f"{k1_fsdp}", flush=True)
+          f"{k1_fsdp}, mean_knn_dist2 launches {knn_fsdp}", flush=True)
     if k1_fsdp != 1 or not np.isfinite(res["sample"]["sample_psnr"]):
         fail(f"the FSDP sampling eval launched forward_tiles {k1_fsdp} "
              f"times, PSNR {res['sample']['sample_psnr']}")
@@ -2121,7 +2177,8 @@ def fsdp_phase(dev, clock):
     if not held["err"] <= K1_TOL:
         fail(f"forward_tiles disagrees with its plain version on the FSDP "
              f"sampling eval's stream: {held['err']}")
-    k1_out = {"launches": k1_fsdp, "err": held["err"], "ms": held["ms"],
+    k1_out = {"launches": k1_fsdp, "knn_launches": knn_fsdp,
+              "err": held["err"], "ms": held["ms"],
               "plain_ms": held["plain_ms"], "bound_ms": held["new"][0],
               "bound_ms_without_cull": held["old"][0]}
     del captured, a, held, res
@@ -2337,21 +2394,24 @@ def orbit_rig_tensors(cfg, n_views, dev):
 
 
 class Counted:
-    """Zero the K1 / K2 launch counts on entry; ``n1`` / ``n2`` are the
-    launches made inside."""
+    """Zero the K1 / K2 / KNN launch counts on entry; ``n1`` / ``n2`` /
+    ``nk`` are the launches made inside."""
 
     def __enter__(self):
+        from sigman_release_torch.ops import knn
         from sigman_release_torch.ops.rasterizer import backward_tiles as k2
         from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 
-        self.k1, self.k2 = k1, k2
+        self.k1, self.k2, self.knn = k1, k2, knn
         k1.forward_tiles.launches = 0
         k2.backward_tiles.launches = 0
+        knn.mean_knn_dist2.launches = 0
         return self
 
     def __exit__(self, *exc):
         self.n1 = self.k1.forward_tiles.launches
         self.n2 = self.k2.backward_tiles.launches
+        self.nk = self.knn.mean_knn_dist2.launches
 
 
 def data_phase(dev, body, template, clock, g_step_ms):
@@ -2687,6 +2747,10 @@ def data_phase(dev, body, template, clock, g_step_ms):
             "k1_dit": c_dit.n1, "k1_test_vae": c_test.n1,
             "k1_inference": c_inf.n1, "k1_inference_eval": c_ev.n1,
             "k1_free": c_free.n1, "k2_free": c_free.n2,
+            "knn": {"data_train_vae": c_train.nk, "data_train_dit": c_dit.nk,
+                    "data_test_vae": c_test.nk, "data_inference": c_inf.nk,
+                    "data_inference_eval": c_ev.nk,
+                    "data_render_free": c_free.nk},
             "k1": {k: held[k] for k in ("err", "ms", "plain_ms")}
             | {"bound_ms": held["new"][0],
                "bound_ms_without_cull": held["old"][0]},
@@ -3104,6 +3168,7 @@ def template_phase(dev, clock):
     shutil.rmtree(root, ignore_errors=True)
     return {"k1_template": c_step.n1, "k2_template": c_step.n2,
             "k1_remat": c_remat.n1, "k2_remat": c_remat.n2,
+            "knn": {"template": c_step.nk, "template_remat": c_remat.nk},
             "k1": {k: held[k] for k in ("err", "ms", "plain_ms")}
             | {"bound_ms": held["new"][0],
                "bound_ms_without_cull": held["old"][0]},
@@ -3131,6 +3196,9 @@ TILE16_ATOL, TILE16_RTOL = 5e-5, 1e-4
 BF16_GRAD_TOL = 8e-3
 LPIPS_FILE_TOL = 1e-4           # LPIPS from files, card against CPU, TF32 off
 KNOB_STEPS = 3
+KNN_ITEMS = 8                   # the vae_b batch, and a request's avatars
+KNN_REPS = 20
+KNN_PAIR_OPS = 5                # f32 instructions a pair test (csrc/knn.cu)
 
 
 def lpips_files(root, net, rng, heads=True):
@@ -3617,7 +3685,7 @@ def knobs_phase(dev, body, template, clock, serve):
     wall = time.perf_counter() - t_phase
     print(f"[knobs] phase 17 in {wall:.1f} s", flush=True)
     return {"k1_launches": path.n1, "k2_launches": path.n2,
-            "variants": variants,
+            "knn_launches": path.nk, "variants": variants,
             "k1_tile16": {"ms": held16_1["ms"],
                           "plain_ms": held16_1["plain_ms"],
                           "bound_ms": held16_1["new"][0],
@@ -3659,6 +3727,47 @@ def knobs_phase(dev, body, template, clock, serve):
                         "max_abs_err": held_b["err"],
                         "max_col_excess": held_b["excess"]},
             "wall_s": wall}
+
+
+def knn_phase(dev, template, clock):
+    """Phase 18: the KNN base scale kernel against its plain version at the
+    main path's shape, its time and its f32-issue bound. Returns the
+    numbers the kernels line needs."""
+    import torch
+
+    from sigman_release_torch.ops import knn
+
+    clock.start("knn")
+    pcd = template.init_pcd.to(dev, torch.float32)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pts = (pcd[None] + 0.003 * torch.randn((KNN_ITEMS, *pcd.shape),
+                                           generator=g, device=dev))
+    pts = pts.contiguous()
+    before = knn.mean_knn_dist2.launches
+    out = knn.mean_knn_dist2(pts)
+    if knn.mean_knn_dist2.launches != before + 1:
+        fail("mean_knn_dist2 did not launch its kernel once for the batch")
+
+    def plain():
+        return torch.stack([knn.mean_knn_dist2_plain(p) for p in pts])
+
+    ref = plain()
+    torch.cuda.synchronize()
+    err = (out.double() - ref.double()).abs().max().item()
+    n_equal = (out == ref).sum().item()
+    ms = cuda_ms(lambda: knn.mean_knn_dist2(pts), KNN_REPS)
+    plain_ms = cuda_ms(plain, 2)
+    n = pts.shape[1]
+    bound_ms = 1e3 * KNN_ITEMS * n * n * KNN_PAIR_OPS / (H100_F32_FLOPS / 2)
+    print(f"[knn] B = {KNN_ITEMS}, N = {n}: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms; f32-issue bound {bound_ms:.2f} ms at 67 "
+          f"TFLOP/s ({100 * bound_ms / ms:.1f}%); {n_equal} of "
+          f"{out.numel()} outputs equal the plain version's bit for bit, max "
+          f"|kernel - plain| {err:.3e}", flush=True)
+    if not torch.equal(out, ref):
+        fail(f"mean_knn_dist2 differs from its plain version by up to {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "f32 issue"}
 
 
 def fmt(values, spec=".3e"):

@@ -18,7 +18,7 @@ of the same numbers over those runs: the spread of a step whose backward
 is not deterministic (one more run alone can land close to the first by
 chance). Weights are seeded alike on every rank (or loaded from
 ``weights``). Each rank also returns its step times, its peak device
-memory and its K1 / K2 launches.
+memory and its K1 / K2 / KNN launches.
 """
 
 from __future__ import annotations
@@ -75,10 +75,11 @@ def _rows(batch: Dict[str, np.ndarray], mesh: Mesh, coords=None):
 
 
 def _counters():
+    from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
 
-    return k1.forward_tiles, k2.backward_tiles
+    return k1.forward_tiles, k2.backward_tiles, knn.mean_knn_dist2
 
 
 def _names(*modules) -> Dict[int, str]:
@@ -307,15 +308,16 @@ def vae_case(cfg, mesh_shape: Sequence[int], mesh_axes: Sequence[str],
     nz = torch.from_numpy(_rows({"n": noise}, mesh)[0]["n"]
                           if rank_noise is None
                           else rank_noise[mesh.rank]).to(dev)
-    k1, k2 = _counters()
-    k1.launches = k2.launches = 0
+    k1, k2, kn = _counters()
+    k1.launches = k2.launches = kn.launches = 0
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     tap = _Tap(vae_trainer, first["clips"] if mesh.rank == 0 else None,
                keep=mesh.rank == 0, names=_names(trainer.vae, trainer.disc))
     loss, logs, ms = _vae_steps(trainer, share, nz, steps, dev, tap)
     out.update(launches={"forward_tiles": k1.launches,
-                         "backward_tiles": k2.launches},
+                         "backward_tiles": k2.launches,
+                         "mean_knn_dist2": kn.launches},
                logs=logs, step_ms=ms, peak_gib=_peak_gib(dev),
                buckets=buckets(trainer.ddp_g))
     if keep_disc:
@@ -526,17 +528,18 @@ def dit_case(cfg, items: Sequence[int], steps: int = 1, draw_seed: int = 0,
                bytes=fsdp.sharded_state_bytes(trainer.model, trainer.opt),
                buckets=buckets(trainer.ddp))
     if sample_steps:
-        k1, _ = _counters()
+        k1, _, kn = _counters()
         item = data[n_items - 1]
         noise = torch.from_numpy(np.random.default_rng(draw_seed).normal(
             size=(1, cfg.latent_channels, cfg.sample_height,
                   cfg.sample_width)).astype(np.float32)).to(dev)
-        k1.launches = 0
+        k1.launches = kn.launches = 0
         out["sample"] = trainer.sample_eval(
             trainer.to_device({k: v[None] for k, v in item.items()
                                if k != "item"}), noise=noise,
             num_inference_steps=sample_steps)
         out["sample_launches"] = k1.launches
+        out["sample_knn_launches"] = kn.launches
     if eval_items:
         from sigman_release_torch.data.loader import shard_for_host
 

@@ -2,8 +2,9 @@
 ``GaussianRenderer.render``).
 
 * per-Gaussian base scale from the detached mean 3-NN distance
-  (``ops/knn.mean_knn_dist2``, the reference's ``distCUDA2``): only it runs
-  under ``torch.no_grad()``, everything else is differentiable,
+  (``ops/knn.mean_knn_dist2``, the reference's ``distCUDA2``; one kernel
+  launch for the batch on CUDA): only it runs under ``torch.no_grad()``,
+  everything else is differentiable,
 * ``scale = (pred + 1) * sqrt(dist2)``, covariance R diag(s^2) R^T,
 * white background default, [B,V] camera batches, f32 geometry whatever the
   network's dtype,
@@ -63,7 +64,7 @@ class GaussianRenderer:
             opacity = opacity[..., 0]
         rot = gaussians.get("cov3d", gaussians.get("rot")).to(f32)
         with torch.no_grad():
-            dist2 = torch.stack([mean_knn_dist2(p) for p in pos])
+            dist2 = mean_knn_dist2(pos.contiguous())
         base = torch.sqrt(torch.clamp(dist2, min=1e-7))[..., None]
         cov3d = build_cov3d((gaussians["scale"].to(f32) + 1.0) * base, rot)
         return pos, cov3d, gaussians["rgb"].to(f32), opacity
