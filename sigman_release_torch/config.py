@@ -50,6 +50,22 @@ class Config:
     use_rotary_positional_embeddings: bool = True
     noised_condition_dropout: float = 0.05
 
+    # ---- denoiser kind -------------------------------------------------------
+    # "dit": the CogVideoX-style DiTModel under the CFG DDIM sampler;
+    # "flux": FLUX.1's double- and single-stream FluxModel under the flow
+    # Euler sampler with embedded guidance. For "flux" the DiT fields above
+    # keep their meaning: heads x head_dim, num_layers double blocks,
+    # text_embed_dim the condition tokens' width (FLUX's context_in_dim),
+    # num_inference_steps and guidance_scale (embedded, one forward a step).
+    denoiser: str = "dit"
+    num_single_layers: int = 38     # FLUX single-stream blocks
+    axes_dim: Tuple[int, ...] = (16, 56, 56)   # RoPE dims per id axis
+    rope_theta: float = 10000.0
+    guidance_embed: bool = True
+    vec_in_dim: int = 1536          # pooled condition (FLUX's CLIP vector)
+    base_shift: float = 0.5         # resolution shift mu at 256 tokens
+    max_shift: float = 1.15         # ... and at 4096 tokens
+
     # ---- cameras / rendering -------------------------------------------------
     fovy: float = 0.8712626851529752
     fovx: float = 0.8712626851529752
@@ -175,6 +191,16 @@ PRESETS = {
                     num_input_views=6, num_epochs=100),
     "dit": Config(input_size=512, output_size=512, num_views=10,
                   num_input_views=6, num_epochs=100, batch_size=8, lr=1e-4),
+    # FLUX.1-dev's transformer (black-forest-labs/flux util.py
+    # configs["flux-dev"]) as the denoiser over the dit preset's latent:
+    # 3072 = 24 x 128, 19 double + 38 single blocks, 28 Euler steps at
+    # embedded guidance 3.5
+    "flux1_dev": Config(input_size=512, output_size=512, num_views=10,
+                        num_input_views=6, num_epochs=100, batch_size=4,
+                        denoiser="flux", num_attention_heads=24,
+                        attention_head_dim=128, num_layers=19,
+                        num_single_layers=38, num_inference_steps=28,
+                        guidance_scale=3.5),
     # small configs for tests / CI — not in the reference
     "test_tiny": Config(input_size=64, output_size=32,
                         lpips_size=64, num_views=3,

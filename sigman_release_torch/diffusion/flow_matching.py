@@ -1,10 +1,12 @@
 """Rectified-flow scheduler with resolution-aware timestep shifting (port of
 the JAX package's ``diffusion/flow_matching.py``).
 
-The reference ships it as an unused alternative to DDIM; it is kept for
-parity. x_t = (1 - t) x0 + t noise; the model predicts the velocity
-noise - x0. Timesteps are float32 in (0, 1); ``sample_t`` draws from an
-explicit ``torch.Generator``.
+The reference ships it as an unused alternative to DDIM; the port samples
+the FLUX denoiser with it (``pipeline.FlowSamplePipeline``: ``shift_t``
+with ``shift = e^mu`` is FLUX's ``time_shift(mu, 1, t)``).
+x_t = (1 - t) x0 + t noise; the model predicts the velocity noise - x0.
+Timesteps are float32 in (0, 1); ``sample_t`` draws from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations

@@ -4,6 +4,7 @@ LBS deform -> tile-rasterizer render.
 Port of ``scripts/test_DiT.py`` ``main()``. Run as::
 
     python -m sigman_release_torch.inference --preset dit --out_dir out/
+    python -m sigman_release_torch.inference --preset flux1_dev --out_dir out/
     python -m sigman_release_torch.inference --preset dit --eval \
         --train_list items.npy --eval_batches 16
 
@@ -42,7 +43,10 @@ from sigman_release_torch.data.dataset import HGSDataset, SyntheticAvatarDataset
 from sigman_release_torch.data.loader import DataLoader
 from sigman_release_torch.device import resolve_device
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
-from sigman_release_torch.diffusion.pipeline import SamplePipeline
+from sigman_release_torch.diffusion.pipeline import (
+    FlowSamplePipeline,
+    SamplePipeline,
+)
 from sigman_release_torch.geometry.cameras import (
     camera_bundle,
     intrinsics_projection_matrix,
@@ -53,6 +57,7 @@ from sigman_release_torch.losses.lpips import LPIPS
 from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.dit import DiTModel
 from sigman_release_torch.models.encoders import ViTFeatureEncoder
+from sigman_release_torch.models.flux import FluxModel
 from sigman_release_torch.models.vae import (
     VAEModel,
     compose_rotations,
@@ -163,8 +168,10 @@ def random_weights_(module: nn.Module, generator: torch.Generator,
 
 
 class AvatarPipeline:
-    """Encoder + DiT + VAE decoder + deformer + renderer on one device; the
-    decoder, deformer and renderer are the VAE's ``LatentRenderer``."""
+    """Encoder + denoiser + VAE decoder + deformer + renderer on one device;
+    the decoder, deformer and renderer are the VAE's ``LatentRenderer``. The
+    denoiser (``self.dit``) and its sampler follow ``cfg.denoiser``: the
+    DiT under the CFG DDIM loop, or FLUX under the flow Euler loop."""
 
     def __init__(self, cfg: Config, *, device="cuda", seed: int = 0,
                  body_model: Optional[SMPLXModel] = None,
@@ -184,11 +191,22 @@ class AvatarPipeline:
         random_weights_(self.vae.heads, g, std=HEAD_INIT_STD)
         self.encoder = build(
             lambda: ViTFeatureEncoder(embed_dim=cfg.text_embed_dim), 1)
-        self.dit = build(lambda: DiTModel(cfg), 2)
-        if cfg.mixed_precision == "bf16":
-            self.dit = self.dit.to(torch.bfloat16)
-        self.sampler = SamplePipeline(
-            cfg, DDIMScheduler.from_config(cfg, device=dev))
+        if cfg.denoiser == "flux":
+            # 11.9 B parameters: built in the serving dtype, never whole
+            # in f32
+            dtype = (torch.bfloat16 if cfg.mixed_precision == "bf16"
+                     else torch.float32)
+            self.dit = build(lambda: FluxModel(cfg).to(dtype), 2)
+            self.sampler = FlowSamplePipeline(cfg)
+        elif cfg.denoiser == "dit":
+            self.dit = build(lambda: DiTModel(cfg), 2)
+            if cfg.mixed_precision == "bf16":
+                self.dit = self.dit.to(torch.bfloat16)
+            self.sampler = SamplePipeline(
+                cfg, DDIMScheduler.from_config(cfg, device=dev))
+        else:
+            raise ValueError(f"unknown denoiser {cfg.denoiser!r}; "
+                             "'dit' or 'flux'")
         # (imported here: vae_trainer imports this module's initialisers)
         from sigman_release_torch.training.vae_trainer import LatentRenderer
 
@@ -226,8 +244,8 @@ class AvatarPipeline:
                timer=NULL_TIMER) -> torch.Tensor:
         """image [B,3,S,S] ImageNet-normalized -> latents [B,Cl,h,w], divided
         by ``vae_scaling_factor`` (once, in the sampler): the conditioning
-        encode ("encoder" span) and the CFG DDIM loop ("dit_sampling", and
-        within it the sampler's and the DiT's spans) from ``noise``
+        encode ("encoder" span) and the sampling loop ("dit_sampling", and
+        within it the sampler's and the denoiser's spans) from ``noise``
         (default: a draw from ``generator``)."""
         cfg = self.cfg
         with timer("encoder"):
@@ -394,7 +412,8 @@ def main(argv=None, *, body_model: Optional[SMPLXModel] = None,
                     help="90-camera calibration json; renders the fixed "
                          "20-view test rig instead of an orbit")
     ap.add_argument("--num_views", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="sampling steps (default: the preset's)")
     ap.add_argument("--out_dir", default="./workspace/inference")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")

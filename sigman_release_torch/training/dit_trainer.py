@@ -144,6 +144,11 @@ class DiTTrainer:
         'view' axis). The DiT is built on ``device`` with seeded random
         weights (``init``); with a process group it runs under DDP, or
         sharded with ``cfg.spmd == "fsdp"``."""
+        if cfg.denoiser != "dit":
+            raise ValueError(
+                f"DiTTrainer trains the DiT denoiser only; this config's "
+                f"denoiser is {cfg.denoiser!r} (FLUX is served by "
+                "AvatarPipeline, not trained here)")
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
         self.mesh = mesh or make_mesh(cfg.mesh_shape, cfg.mesh_axes)

@@ -19,7 +19,7 @@ from sigman_release_tpu.models import dit as jdit
 from sigman_release_tpu.models import vae as jvae
 from sigman_release_tpu.models.encoders import ViTFeatureEncoder as JViT
 from sigman_release_torch import convert
-from sigman_release_torch.config import PRESETS
+from sigman_release_torch.config import PRESETS, Config
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
 from sigman_release_torch.models import dit as tdit
 from sigman_release_torch.models import vae as tvae
@@ -42,10 +42,21 @@ def cfgs():
     return JPRESETS["test_tiny"], PRESETS["test_tiny"]
 
 
+# the port's own fields, for its FLUX denoiser; the JAX package has none
+PORT_ONLY = ("denoiser", "num_single_layers", "axes_dim", "rope_theta",
+             "guidance_embed", "vec_in_dim", "base_shift", "max_shift")
+
+
 def test_config_copy_matches(cfgs):
+    """Every field of the JAX package's presets is the port's; the port's
+    own fields hold their defaults there (the DiT denoiser)."""
     jc, tc = cfgs
+    defaults = Config.__dataclass_fields__
     for name in ("dit", "vae_b", "test_tiny"):
-        assert JPRESETS[name].__dict__ == PRESETS[name].__dict__
+        port = dict(PRESETS[name].__dict__)
+        for key in PORT_ONLY:
+            assert port.pop(key) == defaults[key].default, (name, key)
+        assert JPRESETS[name].__dict__ == port
 
 
 def test_vae_decode_and_heads_match(cfgs):
