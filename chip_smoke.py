@@ -164,7 +164,7 @@ Phases (any failure exits non-zero before the final line):
              K2 training); (e) LPIPS from seeded weight files, card
              against CPU. Files under ``build/``, removed at the end.
 
-18. knn       — last: the KNN base scale kernel (``ops/csrc/knn.cu``) on
+18. knn       — the KNN base scale kernel (``ops/csrc/knn.cu``) on
              ``KNN_ITEMS`` items of phase 3's template Gaussians, each moved
              by a seeded offset: one launch against the plain version per
              item (equal bit for bit, since the kernel repeats its
@@ -172,6 +172,18 @@ Phases (any failure exits non-zero before the final line):
              launches), the plain version's and the f32-issue bound at the
              published peak. Every path that counts K1 launches counts the
              KNN's too (one a render through ``GaussianRenderer``).
+
+19. qk        — last: the denoisers' QK RMSNorm + RoPE kernel
+             (``ops/csrc/qk_norm_rope.cu``) at the serving cells' shapes
+             (``QK_SHAPES``: the DiT's q and k as views of their
+             projections, FLUX's read in place from the packed qkv of each
+             stream and from the single block's ``linear1``), against its
+             plain twin: at most 1 bf16 ulp apart (the share unequal
+             printed), the kernel's ms (CUDA events over ``QK_REPS``
+             launches), the plain twin's and the bytes bound (q and k read
+             and written once, the tables and weights once); the DiT again
+             with f32 weights (its trainer's sampling eval under autocast).
+             Launches of ``qk_norm_rope`` are counted per phase.
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -709,6 +721,7 @@ def main():
     from sigman_release_torch.inference import (
         AvatarPipeline, normalize_image, orbit_rig)
     from sigman_release_torch.ops import knn
+    from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer.render import (
@@ -725,7 +738,7 @@ def main():
     # ---- 1. build -----------------------------------------------------------
     clock.start("build")
     t0 = time.perf_counter()
-    cuda_build.build([k1.SOURCE, k2.SOURCE, knn.SOURCE])
+    cuda_build.build([k1.SOURCE, k2.SOURCE, knn.SOURCE, qk.SOURCE])
     print(f"[build] {len(cuda_build.build_logs)} source(s) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in cuda_build.build_logs.items():
@@ -782,19 +795,27 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     k1.forward_tiles.launches = 0
     knn.mean_knn_dist2.launches = 0
+    qk.qk_norm_rope.launches = 0
     t0 = time.perf_counter()
     res = pipe(image, smpl_vec, cv, cvp, generator=gen, steps=30, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = k1.forward_tiles.launches
     knn_serve = knn.mean_knn_dist2.launches
+    qk_paths = {"serve": qk.qk_norm_rope.launches}
+    qk_mark = [qk.qk_norm_rope.launches]
+
+    def qk_path(name):          # qk_norm_rope launches since the last mark
+        qk_paths[name] = qk.qk_norm_rope.launches - qk_mark[0]
+        qk_mark[0] = qk.qk_norm_rope.launches
     render = res["render"]
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / wall:.1f}%)"
                        for k, v in timer.seconds.items())
     print(f"[main] request {wall * 1e3:.1f} ms: {stages}")
     print(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; forward_tiles launches {launches}, mean_knn_dist2 launches "
-          f"{knn_serve}; overflow {render['overflow'].tolist()}")
+          f"{knn_serve}, qk_norm_rope launches {qk_paths['serve']}; overflow "
+          f"{render['overflow'].tolist()}")
     alpha = render["alpha"]
     print(f"[main] alpha mean {alpha.mean().item():.4f}, coverage (alpha > "
           f"0.5) {(alpha > 0.5).float().mean().item():.4f}; image "
@@ -804,6 +825,10 @@ def main():
     if knn_serve != 1:
         fail(f"the main path launched mean_knn_dist2 {knn_serve} times, not "
              f"once for its one render")
+    qk_want = 30 * cfg.num_layers
+    if qk_paths["serve"] != qk_want:
+        fail(f"the main path launched qk_norm_rope {qk_paths['serve']} "
+             f"times, not once a block a step ({qk_want})")
     hw = cfg.output_size
     if tuple(render["image"].shape) != (1, N_VIEWS, 3, hw, hw):
         fail(f"unexpected image shape {tuple(render['image'].shape)}")
@@ -886,15 +911,25 @@ def main():
 
     del pipe, res, render, stream, held
     torch.cuda.empty_cache()
+    qk_path("plain_small")
     train = train_phases(dev, body, template, clock)
+    qk_path("train")
     dit = dit_phases(dev, body, template, clock)
+    qk_path("dit_train")
     ckpt = ckpt_phase(dev, body, template, clock)
+    qk_path("ckpt")
     ddp = ddp_phase(dev, body, template, clock)
+    qk_path("ddp")
     data = data_phase(dev, body, template, clock, train["g_step_ms"])
+    qk_path("data")
     tmpl = template_phase(dev, clock)
+    qk_path("template")
     fsdp = fsdp_phase(dev, clock)
+    qk_path("fsdp")
     knobs = knobs_phase(dev, body, template, clock, serve)
+    qk_path("knobs")
     knn_held = knn_phase(dev, template, clock)
+    qk_held = qk_phase(dev, clock)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -1027,6 +1062,15 @@ def main():
         "launches_by_path": knn_paths,
         **knn_held,
         "library_ms": None,
+    }, {
+        "name": "qk_norm_rope",
+        "route": "cuda",
+        "source": "sigman_release_torch/ops/csrc/qk_norm_rope.cu",
+        "replaces": None,
+        "launches": sum(qk_paths.values()),
+        "launches_by_path": qk_paths,
+        **qk_held,
+        "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1080,6 +1124,7 @@ def train_phases(dev, body, template, clock):
 
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.ops import knn
+    from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
@@ -1375,6 +1420,7 @@ def ckpt_phase(dev, body, template, clock):
     from sigman_release_torch.losses.gan import PatchDiscriminator
     from sigman_release_torch.models.vae import VAEModel
     from sigman_release_torch.ops import knn
+    from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
@@ -1884,6 +1930,7 @@ def ddp_phase(dev, body, template, clock):
 
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.ops import knn
+    from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.parallel import cases, launch
@@ -3199,6 +3246,15 @@ KNOB_STEPS = 3
 KNN_ITEMS = 8                   # the vae_b batch, and a request's avatars
 KNN_REPS = 20
 KNN_PAIR_OPS = 5                # f32 instructions a pair test (csrc/knn.cu)
+QK_REPS = 50
+# the denoisers' QK norm + RoPE at the serving cells' shapes: batch, heads,
+# head dim, each stream's tokens, rope_from, round_before_scale
+QK_SHAPES = {
+    "dit": (16, 32, 64, (1088,), 64, False),     # dit-serve: CFG batch 16,
+                                                 # 64 condition + 1024 image
+    "flux_double": (4, 24, 128, (1024, 1024), 0, True),   # flux1_dev-serve
+    "flux_single": (4, 24, 128, (2048,), 0, True),
+}
 
 
 def lpips_files(root, net, rng, heads=True):
@@ -3768,6 +3824,122 @@ def knn_phase(dev, template, clock):
         fail(f"mean_knn_dist2 differs from its plain version by up to {err}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "f32 issue"}
+
+
+def qk_inputs(dev, name, seed):
+    """Streams of ``qk_norm_rope`` at ``QK_SHAPES[name]`` as the models
+    hand them over: the DiT's q and k as views of their projections, FLUX's
+    read from each stream's packed qkv (double) or from the single block's
+    ``linear1`` output; bf16 norm weights."""
+    import torch
+
+    from sigman_release_torch.models import flux
+
+    batch, heads, d, tokens = QK_SHAPES[name][:4]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(
+            torch.bfloat16)
+
+    dim, streams = heads * d, []
+    for s in tokens:
+        w = [1 + randn(d, scale=0.3) for _ in range(2)]
+        if name == "dit":
+            q, k = (randn(batch, s, dim, scale=3.0).view(batch, s, heads, d)
+                    for _ in range(2))
+        elif name == "flux_double":
+            q, k, _ = flux.split_heads(randn(batch, s, 3 * dim, scale=3.0),
+                                       heads)
+        else:
+            qkv, _ = torch.split(randn(batch, s, 7 * dim, scale=3.0),
+                                 [3 * dim, 4 * dim], dim=-1)
+            q, k, _ = flux.split_heads(qkv, heads)
+        streams.append((q, k, *w))
+    return streams
+
+
+def qk_tables(dev, name, d):
+    import torch
+
+    from sigman_release_torch.models import dit, flux
+
+    if name == "dit":
+        return tuple(torch.as_tensor(a, device=dev)
+                     for a in dit.rope_2d(d, 32, 32))
+    ids = torch.cat([flux.rope_ids(1, 32, 32), flux.rope_ids(0, 32, 32)])
+    return flux.rope_tables(ids.to(dev), (16, 56, 56), 1e4)
+
+
+def bf16_ulps(a, b):
+    """|a - b| in bf16 units in the last place (bit patterns as ordered
+    integers)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def qk_phase(dev, clock):
+    """Phase 19: the QK RMSNorm + RoPE kernel against its plain twin at the
+    serving cells' shapes, its time and its bytes bound. Returns the
+    numbers the kernels line needs."""
+    import torch
+
+    from sigman_release_torch.ops import qk_norm_rope as qk
+
+    clock.start("qk")
+    res = {}
+    runs = [(name, name, torch.bfloat16) for name in QK_SHAPES]
+    runs.append(("dit_f32_weights", "dit", torch.float32))
+    for label, name, w_dtype in runs:
+        batch, heads, d, tokens, rope_from, order = QK_SHAPES[name]
+        streams = [(q, k, wq.to(w_dtype), wk.to(w_dtype)) for q, k, wq, wk in
+                   qk_inputs(dev, name, seed=len(res))]
+        rope = qk_tables(dev, name, d)
+
+        def kernel():
+            return qk.qk_norm_rope(streams, rope, rope_from, 1e-6, order)
+
+        def plain():
+            return qk.qk_norm_rope_plain(streams, rope, rope_from, 1e-6,
+                                         order)
+
+        with torch.no_grad():
+            before = qk.qk_norm_rope.launches
+            got = kernel()
+            if qk.qk_norm_rope.launches != before + 1:
+                fail(f"qk_norm_rope did not launch its kernel once ({label})")
+            want = plain()
+            torch.cuda.synchronize()
+            ulps = [bf16_ulps(a, b) for a, b in zip(got, want)]
+            worst = max(u.max().item() for u in ulps)
+            unequal = sum((u > 0).sum().item() for u in ulps) / sum(
+                u.numel() for u in ulps)
+            ms = cuda_ms(kernel, QK_REPS)
+            plain_ms = cuda_ms(plain, 5)
+        n = sum(batch * s * heads * d for s in tokens)
+        table_bytes = 2 * 4 * (sum(tokens) - rope_from) * d
+        n_bytes = 2 * (2 * n * 2) + table_bytes + 2 * len(tokens) * d * (
+            torch.finfo(w_dtype).bits // 8)
+        bound_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+        print(f"[qk] {label}: B = {batch}, tokens {tokens}, {heads} x {d}, "
+              f"rope from {rope_from}, weights {w_dtype}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms; bytes bound {bound_ms:.4f} ms "
+              f"({n_bytes / 1e6:.1f} MB at 3.35 TB/s: "
+              f"{100 * bound_ms / ms:.1f}%); at most {worst} bf16 ulp apart, "
+              f"{unequal:.3e} of the outputs unequal", flush=True)
+        if not worst <= 1:
+            fail(f"qk_norm_rope differs from its plain twin by {worst} ulp "
+                 f"({label})")
+        res[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "max_ulps": worst, "unequal_share": unequal}
+        del streams, got, want
+        torch.cuda.empty_cache()
+    return {**res["dit"], "bound_by": "bytes",
+            **{k: v for k, v in res.items() if k != "dit"}}
 
 
 def fmt(values, spec=".3e"):

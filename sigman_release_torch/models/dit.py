@@ -5,7 +5,8 @@ the JAX package's ``models/dit.py``).
   the conditioning feature map into conditioning tokens,
 * blocks: AdaLN-zero (6-way shift/scale/gate for both streams, one shared
   LayerNorm eps 1e-5), joint self-attention over [cond; image] with per-head
-  RMS qk-norm (eps 1e-6) and 2D RoPE on the image slice only, tanh-GELU FFN
+  RMS qk-norm (eps 1e-6) and 2D RoPE on the image slice only (one op,
+  ``ops/qk_norm_rope.py``: a kernel when serving on the card), tanh-GELU FFN
   over the concatenated streams,
 * final LayerNorm over the joint sequence, AdaLayerNorm (shift/scale) from
   the time embedding, linear projection to p*p*out_channels, unpatchify.
@@ -31,6 +32,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sigman_release_torch.config import Config
+from sigman_release_torch.ops.qk_norm_rope import qk_norm_rope
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 
@@ -96,26 +98,19 @@ def rope_2d(head_dim: int, grid_h: int, grid_w: int,
     return cos.astype(np.float32), sin.astype(np.float32)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """x [B,S,h,d]; cos/sin [S,d]. Interleaved-pair rotation
-    ((x0,x1) -> (x0 c - x1 s, x1 c + x0 s))."""
-    x2 = x.reshape(*x.shape[:-1], -1, 2)
-    rot = torch.stack([-x2[..., 1], x2[..., 0]], dim=-1).reshape(x.shape)
-    return x * cos[None, :, None, :] + rot * sin[None, :, None, :]
-
-
 class RMSNormPerHead(nn.Module):
+    """A per-head RMS norm's weight and eps; ``JointAttention`` applies it
+    through ``ops.qk_norm_rope`` (weight in f32, one rounding)."""
+
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):  # [..., d]
-        return self.normalize(x, self.weight)
-
-    def normalize(self, x, weight):
-        var = x.float().pow(2).mean(dim=-1, keepdim=True)
-        return (x * torch.rsqrt(var + self.eps) * weight).to(x.dtype)
+    def applied_weight(self) -> torch.Tensor:
+        """The weight as the norm multiplies by it (``parallel/fsdp.py``
+        routes it through a sum of its gradient)."""
+        return self.weight
 
 
 class JointAttention(nn.Module):
@@ -140,15 +135,12 @@ class JointAttention(nn.Module):
         def split(t):   # this rank's heads under tensor parallelism
             return t.reshape(b, s, -1, self.head_dim)
 
-        q = self.norm_q(split(self.to_q(x)))
-        k = self.norm_k(split(self.to_k(x)))
+        q, k = qk_norm_rope(
+            [(split(self.to_q(x)), split(self.to_k(x)),
+              self.norm_q.applied_weight(), self.norm_k.applied_weight())],
+            rope, rope_from=s_cond, eps=self.norm_q.eps,
+            round_before_scale=False)
         v = split(self.to_v(x))
-        if rope is not None:
-            cos, sin = rope
-            q = torch.cat([q[:, :s_cond], apply_rope(q[:, s_cond:], cos, sin)
-                           .to(q.dtype)], dim=1)
-            k = torch.cat([k[:, :s_cond], apply_rope(k[:, s_cond:], cos, sin)
-                           .to(k.dtype)], dim=1)
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         out = self.to_out[0](out.transpose(1, 2).reshape(b, s, -1))

@@ -21,7 +21,9 @@ dtype before its scale (BFL's order); the MLPs use tanh-GELU; RoPE rotates
 ``axes_dim[i]`` dims of each head per id axis as interleaved pairs, on both
 streams. Image tokens have ids (0, row, col), condition tokens (1, row, col)
 on their own grid (FLUX.1 Kontext's place for a context image). The RoPE
-tables are built once per (grids, device) on the device and kept.
+tables are built once per (grids, device) on the device and kept. QK norm,
+RoPE and the join of the two streams' q and k are one op
+(``ops/qk_norm_rope.py``: a kernel when serving on the card).
 
 Parameter names follow BFL's checkpoint (``double_blocks.{i}.img_attn.qkv``
 ...). The model computes in its parameters' dtype; ``forward`` casts its
@@ -37,13 +39,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from sigman_release_torch.config import Config
-from sigman_release_torch.models.dit import apply_rope, timestep_sinusoid
+from sigman_release_torch.models.dit import timestep_sinusoid
+from sigman_release_torch.ops.qk_norm_rope import qk_norm_rope
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 # FLUX.1's fixed sizes (util.py configs["flux-dev"])
 MLP_RATIO = 4
 TIME_DIM = 256
 PATCH = 2
+EPS = 1e-6          # the QK RMSNorm's
 
 
 class MLPEmbedder(nn.Module):
@@ -57,24 +61,24 @@ class MLPEmbedder(nn.Module):
 
 
 class RMSNorm(nn.Module):
+    """A QK RMSNorm's scale (BFL's name)."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.scale = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x):
-        xf = x.float()
-        rrms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
-        return (xf * rrms).to(x.dtype) * self.scale
-
 
 class QKNorm(nn.Module):
+    """The query and key norms' scales (applied by ``qk_norm_rope``)."""
+
     def __init__(self, dim: int):
         super().__init__()
         self.query_norm = RMSNorm(dim)
         self.key_norm = RMSNorm(dim)
 
-    def forward(self, q, k, v):
-        return self.query_norm(q).to(v.dtype), self.key_norm(k).to(v.dtype)
+    def stream(self, q, k):
+        """``(q, k, q scale, k scale)``: one stream of ``qk_norm_rope``."""
+        return q, k, self.query_norm.scale, self.key_norm.scale
 
 
 class SelfAttention(nn.Module):
@@ -108,12 +112,15 @@ def split_heads(qkv: torch.Tensor, heads: int):
     return q, k, v
 
 
-def rope_attention(q, k, v, rope):
-    """RoPE on q and k (f32, cast back), SDPA; q, k, v [B, L, H, D] ->
-    [B, L, H D]."""
-    cos, sin = rope
-    q = apply_rope(q, cos, sin).to(v.dtype)
-    k = apply_rope(k, cos, sin).to(v.dtype)
+def qk_rope(streams, rope):
+    """Each stream's QK RMSNorm (BFL's order), the streams joined, RoPE on
+    every token: q, k [B, L, H, D]."""
+    return qk_norm_rope(streams, rope, rope_from=0, eps=EPS,
+                        round_before_scale=True)
+
+
+def attention(q, k, v):
+    """SDPA over q, k, v [B, L, H, D] -> [B, L, H D]."""
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
     b, _, s, _ = out.shape
@@ -144,16 +151,16 @@ class DoubleStreamBlock(nn.Module):
     def forward(self, img, txt, vec, rope):
         img_mod = self.img_mod(vec)
         txt_mod = self.txt_mod(vec)
-        qkv = []
+        streams, vs = [], []
         for x, mod, attn in ((txt, txt_mod, self.txt_attn),
                              (img, img_mod, self.img_attn)):
             x_mod = modulate(F.layer_norm(x, x.shape[-1:], eps=1e-6),
                              mod[0], mod[1])
             q, k, v = split_heads(attn.qkv(x_mod), self.heads)
-            q, k = attn.norm(q, k, v)
-            qkv.append((q, k, v))
-        q, k, v = (torch.cat([t, i], dim=1) for t, i in zip(*qkv))
-        out = rope_attention(q, k, v, rope)
+            streams.append(attn.norm.stream(q, k))
+            vs.append(v)
+        q, k = qk_rope(streams, rope)
+        out = attention(q, k, torch.cat(vs, dim=1))
         s = txt.shape[1]
         out = {"txt": out[:, :s], "img": out[:, s:]}
         res = []
@@ -182,8 +189,8 @@ class SingleStreamBlock(nn.Module):
         qkv, mlp = torch.split(self.linear1(x_mod),
                                [3 * self.dim, MLP_RATIO * self.dim], dim=-1)
         q, k, v = split_heads(qkv, self.heads)
-        q, k = self.norm(q, k, v)
-        attn = rope_attention(q, k, v, rope)
+        q, k = qk_rope([self.norm.stream(q, k)], rope)
+        attn = attention(q, k, v)
         out = self.linear2(torch.cat(
             [attn, F.gelu(mlp, approximate="tanh")], dim=2))
         return x + gate * out
@@ -216,7 +223,7 @@ def rope_tables(ids: torch.Tensor, axes_dim, theta: float):
     """(cos, sin) [S, sum(axes_dim)] f32 of ``ids`` [S, n_axes]: axis i
     rotates its ``axes_dim[i]`` dims as interleaved pairs at frequencies
     theta^(-2j / axes_dim[i]) (BFL's ``EmbedND``, each angle repeated for
-    the pair as ``apply_rope`` takes it)."""
+    the pair as ``ops.qk_norm_rope`` takes it)."""
     cos, sin = [], []
     for i, dim in enumerate(axes_dim):
         scale = torch.arange(0, dim, 2, dtype=torch.float64,

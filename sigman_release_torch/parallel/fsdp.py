@@ -135,8 +135,8 @@ class SplitHeadsNorm(RMSNormPerHead):
         super().__init__(norm.weight.numel(), norm.eps)
         self.weight, self.group = norm.weight, group
 
-    def forward(self, x):
-        return self.normalize(x, SumGrad.apply(self.weight, self.group))
+    def applied_weight(self) -> torch.Tensor:
+        return SumGrad.apply(self.weight, self.group)
 
 
 def shards(t) -> int:
