@@ -75,7 +75,7 @@ Phases (any failure exits non-zero before the final line):
              memory, buckets and bytes all-reduced; K1 / K2 launch counts
              zeroed before the DDP steps); (b) two ranks sharing the card
              over gloo, child processes with one deadline
-             (``parallel/launch.py``, ``parallel/cases.py``) against one
+             (``parallel/launch.py``, ``training/cases.py``) against one
              process on the whole batch (and a second one-process run,
              the backward's spread): ``vae_b`` data 2 x view 1 at B = 1 per
              rank (a G step, then a D step with the gate open, dropout off;
@@ -1634,10 +1634,10 @@ def small_dit_step_diff(dev):
 
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.data.dataset import SyntheticAvatarDataset
-    from sigman_release_torch.inference import random_weights_
+    from sigman_release_torch.models.init import build_on, random_weights_
     from sigman_release_torch.models.vae import VAEModel
     from sigman_release_torch.training.dit_trainer import (
-        RAW_KEYS, DiTTrainer, build_on, make_encoder)
+        RAW_KEYS, DiTTrainer, make_encoder)
 
     cfg = PRESETS["test_tiny"].replace(gradient_accumulation_steps=2,
                                        noised_condition_dropout=0.5)
@@ -1678,12 +1678,12 @@ def dit_phases(dev, body, template, clock):
     """Phases 10-11; returns the numbers the kernels line needs."""
     import torch
 
+    from portbench.flops import dit_step_flops
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.ops import knn
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
     from sigman_release_torch.ops.rasterizer import render as render_lib
-    from sigman_release_torch.training.dit_trainer import (
-        step_flops, synthetic_setup)
+    from sigman_release_torch.training.dit_trainer import synthetic_setup
     from sigman_release_torch.utils.timing import StageTimer
 
     # ---- 10. dit training steps at full width -------------------------------
@@ -1744,7 +1744,7 @@ def dit_phases(dev, body, template, clock):
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / total:.1f}%)"
                        for k, v in spans[-1].items())
     grid = cfg.input_size // trainer.encoder.patch_proj.stride[0]
-    flops = step_flops(cfg, batch["input"].shape[0], (grid // 4) ** 2)
+    flops = dit_step_flops(cfg, batch["input"].shape[0], (grid // 4) ** 2)
     fwd_bwd = spans[-1]["dit_fwd_bwd"]
     print(f"[dit] step median of steps 2-{DIT_STEPS}: {med:.1f} ms; step "
           f"{DIT_STEPS} spans: {stages}")
@@ -1876,7 +1876,7 @@ def world1_steps(make, kind, run, step, module, against=None):
     timed steps' ms and, under DDP, its buckets."""
     import torch
 
-    from sigman_release_torch.parallel.cases import buckets
+    from sigman_release_torch.training.cases import buckets
 
     trainer = make()
     params = (list(trainer.model.parameters()) if kind == "dit"
@@ -1933,9 +1933,9 @@ def ddp_phase(dev, body, template, clock):
     from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
     from sigman_release_torch.ops.rasterizer import forward_tiles as k1
-    from sigman_release_torch.parallel import cases, launch
+    from sigman_release_torch.parallel import launch
     from sigman_release_torch.parallel.mesh import make_mesh
-    from sigman_release_torch.training import dit_trainer, vae_trainer
+    from sigman_release_torch.training import cases, dit_trainer, vae_trainer
 
     clock.start("ddp")
     # ---- (a) NCCL at world size 1 against more runs of the bare trainers
@@ -2048,7 +2048,7 @@ def ddp_phase(dev, body, template, clock):
     gloo = {}
     for name, case, kwargs in layouts:
         t0 = time.perf_counter()
-        res = launch.run(f"sigman_release_torch.parallel.cases:{case}", 2,
+        res = launch.run(f"sigman_release_torch.training.cases:{case}", 2,
                          kwargs, device="cuda:0", backend="gloo",
                          timeout=DDP_TIMEOUT, threads=4)
         r0, floor = res[0], res[0]["floor"]
@@ -2174,7 +2174,8 @@ def fsdp_phase(dev, clock):
 
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.ops.rasterizer import render as render_lib
-    from sigman_release_torch.parallel import cases, launch
+    from sigman_release_torch.parallel import launch
+    from sigman_release_torch.training import cases
 
     clock.start("fsdp")
     cfg = PRESETS[DIT_PRESET].replace(spmd="fsdp")
@@ -2261,7 +2262,7 @@ def fsdp_phase(dev, clock):
             torch.backends.cuda.matmul.allow_tf32)
     try:
         t0 = time.perf_counter()
-        res = launch.run("sigman_release_torch.parallel.cases:series", 2,
+        res = launch.run("sigman_release_torch.training.cases:series", 2,
                          {"runs": runs}, device="cuda:0", backend="gloo",
                          timeout=FSDP_TIMEOUT, threads=4)
         b_s = time.perf_counter() - t0
@@ -2336,7 +2337,7 @@ def fsdp_resumed_step(cfg, path, r0, dev) -> dict:
     import torch
 
     from sigman_release_torch.data.dataset import SyntheticAvatarDataset
-    from sigman_release_torch.parallel import cases
+    from sigman_release_torch.training import cases
     from sigman_release_torch.training.dit_trainer import (
         RAW_KEYS, DiTTrainer)
 

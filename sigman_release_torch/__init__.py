@@ -12,15 +12,20 @@ module:
                 (``ops/rasterizer/csrc/*.cu``) with their plain PyTorch
                 versions, one autograd Function around them
   body/         SMPL-X, LBS, template assets, Gaussian deformer
-  models/       VAE (encoder, bottleneck, decoder, heads), DiT, ViT encoder
-                (Sapiens-1B geometry with learned positions)
+  models/       VAE (encoder, bottleneck, decoder, heads), DiT, FLUX, ViT
+                encoder (Sapiens-1B geometry with learned positions); the
+                seeded weight conventions (``models/init.py``)
   diffusion/    DDIM scheduler, the CFG sampling loop, the flow scheduler
   losses/       L1 + LPIPS + KL + hinge GAN, PSNR / SSIM
   data/         synthetic avatar dataset, augmentation, loader
-  training/     VAETrainer (G/D steps, AdamW), LatentRenderer (decode ->
-                deform -> render), DiTTrainer (frozen VAE and encoder, v
-                prediction, warmup-cosine AdamW), step profiler
+  parallel/     process group and mesh, FSDP, child-process launcher
   renderer.py   GaussianRenderer (KNN base scale -> covariance -> rasterize)
+  avatar.py     LatentRenderer (decode -> deform -> render), shared by the
+                trainers and the serving pipeline
+  training/     VAETrainer (G/D steps, AdamW), DiTTrainer (frozen VAE and
+                encoder, v prediction, warmup-cosine AdamW), the fit loop
+                and clip they share (``loop.py``), state files, the
+                multi-rank cases held against one process (``cases.py``)
   convert.py    Flax parameter trees -> this package's state_dicts; Sapiens
                 weights -> the conditioning encoder
   inference.py  image -> avatar entry point (``python -m

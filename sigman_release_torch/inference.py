@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 from typing import Dict, Optional, Sequence
@@ -34,8 +33,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
+from sigman_release_torch.avatar import LatentRenderer
 from sigman_release_torch.body.smplx import SMPLXModel, parse_param_vector
 from sigman_release_torch.body.template import TemplateAssets
 from sigman_release_torch.config import PRESETS, Config
@@ -58,6 +57,11 @@ from sigman_release_torch.losses.metrics import psnr, ssim
 from sigman_release_torch.models.dit import DiTModel
 from sigman_release_torch.models.encoders import ViTFeatureEncoder
 from sigman_release_torch.models.flux import FluxModel
+from sigman_release_torch.models.init import (
+    HEAD_INIT_STD,
+    build_on,
+    random_weights_,
+)
 from sigman_release_torch.models.vae import (
     VAEModel,
     compose_rotations,
@@ -78,10 +82,6 @@ TEST_VIEW_IDS = [30, 37, 45, 53, 65, 85, 0, 6, 15, 24, 34, 41, 49, 57, 60,
 _SMPLX_KEYS = ("transl", "global_orient", "betas", "body_pose", "expression",
                "left_hand_pose", "right_hand_pose", "jaw_pose", "leye_pose",
                "reye_pose")
-
-# std of the Gaussian heads' random init: keeps decoded offsets near zero, so
-# a randomly initialised avatar stays on the template body surface
-HEAD_INIT_STD = 1e-3
 
 
 def load_pose(path: str, frame: int = 0) -> np.ndarray:
@@ -149,24 +149,6 @@ def normalize_image(img: np.ndarray, input_size: int) -> torch.Tensor:
     return (x - mean) / std
 
 
-def random_weights_(module: nn.Module, generator: torch.Generator,
-                    std: Optional[float] = None) -> nn.Module:
-    """Seeded init: linear/conv weights N(0, 1/fan_in) (or ``std``), biases
-    0, norm weights 1 — drawn from ``generator`` only."""
-    with torch.no_grad():
-        for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if p.ndim >= 2:
-                fan_in = p[0].numel()
-                p.normal_(0.0, std or 1.0 / math.sqrt(fan_in),
-                          generator=generator)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                p.fill_(1.0)
-    return module
-
-
 class AvatarPipeline:
     """Encoder + denoiser + VAE decoder + deformer + renderer on one device;
     the decoder, deformer and renderer are the VAE's ``LatentRenderer``. The
@@ -179,27 +161,25 @@ class AvatarPipeline:
         dev = resolve_device(device)
         self.cfg, self.device = cfg, dev
 
-        def build(make, offset):
-            with torch.device("meta"):
-                module = make()
-            module = module.to_empty(device=dev)
-            g = torch.Generator(device=dev).manual_seed(seed + offset)
-            return random_weights_(module, g).eval()
+        def gen(offset):
+            return torch.Generator(device=dev).manual_seed(seed + offset)
 
-        self.vae = build(lambda: VAEModel(cfg, with_encoder=False), 0)
-        g = torch.Generator(device=dev).manual_seed(seed + 3)
-        random_weights_(self.vae.heads, g, std=HEAD_INIT_STD)
-        self.encoder = build(
-            lambda: ViTFeatureEncoder(embed_dim=cfg.text_embed_dim), 1)
+        self.vae = build_on(dev, lambda: VAEModel(cfg, with_encoder=False),
+                            gen(0)).eval()
+        random_weights_(self.vae.heads, gen(3), std=HEAD_INIT_STD)
+        self.encoder = build_on(
+            dev, lambda: ViTFeatureEncoder(embed_dim=cfg.text_embed_dim),
+            gen(1)).eval()
         if cfg.denoiser == "flux":
             # 11.9 B parameters: built in the serving dtype, never whole
             # in f32
             dtype = (torch.bfloat16 if cfg.mixed_precision == "bf16"
                      else torch.float32)
-            self.dit = build(lambda: FluxModel(cfg).to(dtype), 2)
+            self.dit = build_on(dev, lambda: FluxModel(cfg).to(dtype),
+                                gen(2)).eval()
             self.sampler = FlowSamplePipeline(cfg)
         elif cfg.denoiser == "dit":
-            self.dit = build(lambda: DiTModel(cfg), 2)
+            self.dit = build_on(dev, lambda: DiTModel(cfg), gen(2)).eval()
             if cfg.mixed_precision == "bf16":
                 self.dit = self.dit.to(torch.bfloat16)
             self.sampler = SamplePipeline(
@@ -207,9 +187,6 @@ class AvatarPipeline:
         else:
             raise ValueError(f"unknown denoiser {cfg.denoiser!r}; "
                              "'dit' or 'flux'")
-        # (imported here: vae_trainer imports this module's initialisers)
-        from sigman_release_torch.training.vae_trainer import LatentRenderer
-
         # the configured body model and template unless given, else the
         # procedural body
         self.latent_renderer = lr = LatentRenderer(

@@ -1,6 +1,6 @@
 """Run one function on several ranks, each a child process.
 
-    results = launch.run("sigman_release_torch.parallel.cases:vae_case",
+    results = launch.run("sigman_release_torch.training.cases:vae_case",
                          world=2, kwargs={...}, device="cpu", timeout=300)
 
 Each child runs ``python -m sigman_release_torch.parallel.launch``: it joins

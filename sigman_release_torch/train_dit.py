@@ -69,11 +69,11 @@ from sigman_release_torch.parallel.mesh import (
     is_rank0,
     make_mesh,
 )
+from sigman_release_torch.models.init import build_on
 from sigman_release_torch.train_vae import check_train_list, steps_per_epoch
 from sigman_release_torch.training import checkpoint
 from sigman_release_torch.training.dit_trainer import (
     DiTTrainer,
-    build_on,
     frozen_vae,
     make_encoder,
 )

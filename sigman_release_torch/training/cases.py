@@ -360,8 +360,8 @@ def _dit_parts(cfg, dev, n_verts: Optional[int] = None):
     """The frozen VAE (seeded as the trainer's), its ``LatentRenderer`` on
     the procedural body (of ``n_verts`` vertices; default the renderer's
     own), and the conditioning encoder."""
+    from sigman_release_torch.models.init import build_on
     from sigman_release_torch.training.dit_trainer import (
-        build_on,
         frozen_vae,
         make_encoder,
     )

@@ -73,35 +73,35 @@ import torch
 from torch import nn
 
 from sigman_release_torch import convert
+from sigman_release_torch.avatar import LatentRenderer
 from sigman_release_torch.config import Config
 from sigman_release_torch.device import resolve_device
 from sigman_release_torch.diffusion.ddim import DDIMScheduler
 from sigman_release_torch.diffusion.pipeline import SamplePipeline
-from sigman_release_torch.inference import random_weights_
 from sigman_release_torch.losses.metrics import psnr
 from sigman_release_torch.models.dit import DiTModel
 from sigman_release_torch.models.encoders import (
     ViTFeatureEncoder,
     sapiens_1b_encoder,
 )
+from sigman_release_torch.models.init import build_on, init_vae_
 from sigman_release_torch.models.vae import VAEModel
 from sigman_release_torch.parallel import fsdp
 from sigman_release_torch.parallel.mesh import (
     Mesh,
     make_mesh,
-    prefetch_to_device,
     rank_seed,
     shard_batch,
 )
-from sigman_release_torch.training import checkpoint
-from sigman_release_torch.training.vae_trainer import (
-    LatentRenderer,
+from sigman_release_torch.training import checkpoint, loop
+
+# ``_apply`` looks the clip up in this module: the multi-rank cases
+# (``training/cases.py``) and the tests tap it by patching this name
+from sigman_release_torch.training.loop import (
     clip_by_global_norm_,
-    init_vae_,
     no_sync,
     wrap_ddp,
 )
-from sigman_release_torch.utils.profiling import StepTimer, trace_if
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 RAW_KEYS = ("input", "UV_inital", "sapiens_input")
@@ -116,17 +116,6 @@ def make_encoder(cfg: Config) -> ViTFeatureEncoder:
     if cfg.text_embed_dim == 1536:
         return sapiens_1b_encoder()
     return ViTFeatureEncoder(embed_dim=cfg.text_embed_dim)
-
-
-def build_on(device, make, generator: torch.Generator) -> nn.Module:
-    """``make()`` built on ``device`` without a host copy, with seeded
-    random weights (``inference.random_weights_``). The module may hold no
-    buffers: they would stay uninitialised."""
-    with torch.device("meta"):
-        module = make()
-    if next(module.buffers(), None) is not None:
-        raise ValueError(f"build_on: {type(module).__name__} holds buffers")
-    return random_weights_(module.to_empty(device=device), generator)
 
 
 class DiTTrainer:
@@ -456,58 +445,25 @@ class DiTTrainer:
             eval_every: Optional[int] = None,
             profile_dir: Optional[str] = None,
             profile_every: int = 500) -> Dict[str, float]:
-        """Train over ``loader`` epochs until ``num_steps`` micro-steps (one
-        epoch of the shortest rank's loader if None; every rank must be
-        given the same ``num_steps``): log every ``log_every``, save to
-        ``ckpt_path`` every ``save_ckpt_steps`` and at the end, and every
-        ``eval_every`` steps take the eval loss over up to 4 ``eval_loader``
-        batches and, with a ``latent_renderer``, one ``sample_eval`` on
-        rank 0's first (on every rank under FSDP; its PNG goes to
-        ``<workspace>/dit_sample_<step>.png``). Only rank 0 prints and logs.
-        Batches reach the device ``prefetch_to_device`` ahead. With
-        ``profile_dir`` every ``profile_every``-th step (counted from 0, the
-        first not) is traced into it (``utils/profiling.trace_if``). Returns
-        the last logs."""
-        cfg = self.cfg
-        lead = self.mesh.rank == 0
-        if num_steps is None:
-            num_steps = self.step + self.mesh.min_int(len(loader))
-        timer = StepTimer()
-        timer.tick()
-        logs: Dict[str, float] = {}
-        while self.step < num_steps:
-            host = ({k: b[k] for k in (ENCODED_KEYS if "latent" in b
-                                        else RAW_KEYS)} for b in loader)
-            taken = 0
-            for batch in timer.timed(prefetch_to_device(
-                    host, self.mesh, self.device)):
-                if self.step >= num_steps:
-                    break
-                taken += 1
-                with trace_if(profile_dir, self.step, every=profile_every):
-                    out = self.train_step({k: v.float()
-                                           for k, v in batch.items()})
-                logs = {n: float(v) for n, v in out.items()}
-                timer.tick()
-                if self.step % log_every == 0 and lead:
-                    summ = timer.summary()
-                    print(f"[dit] step {self.step} loss {logs['loss']:.4f} "
-                          f"({summ.get('step_time_mean_s', 0.0):.2f}s/step, "
-                          f"data wait {summ.get('data_wait_mean_s', 0.0):.3f}s"
-                          f" = {summ.get('data_wait_share', 0.0):.1%})",
-                          flush=True)
-                    if logger is not None:
-                        logger.log(self.step, {**logs, **summ})
-                if ckpt_path and self.step % cfg.save_ckpt_steps == 0:
-                    self.save(ckpt_path)
-                if (eval_loader is not None and eval_every
-                        and self.step % eval_every == 0):
-                    self._evaluate(eval_loader, logger)
-            if not taken and self.step < num_steps:
-                raise ValueError("fit: the loader yields no batch")
-        if ckpt_path:
-            self.save(ckpt_path)
-        return logs
+        """Train step by step in ``loop.fit`` (its micro-step count,
+        cadences, state file, prefetch and tracing) on raw or pre-encoded
+        batches. Every ``eval_every`` steps take the eval loss over up to 4
+        ``eval_loader`` batches and, with a ``latent_renderer``, one
+        ``sample_eval`` on rank 0's first (on every rank under FSDP; its PNG
+        goes to ``<workspace>/dit_sample_<step>.png``). Only rank 0 prints
+        and logs. Returns the last logs."""
+        return loop.fit(
+            self, loader,
+            lambda batch: self.train_step({k: v.float()
+                                           for k, v in batch.items()}),
+            keys=lambda b: ENCODED_KEYS if "latent" in b else RAW_KEYS,
+            head=lambda logs: (f"[dit] step {self.step} "
+                               f"loss {logs['loss']:.4f}"),
+            evaluate=None if eval_loader is None
+            else lambda: self._evaluate(eval_loader, logger),
+            num_steps=num_steps, log_every=log_every, eval_every=eval_every,
+            ckpt_path=ckpt_path, logger=logger, profile_dir=profile_dir,
+            profile_every=profile_every)
 
     def _evaluate(self, eval_loader, logger=None) -> Dict[str, float]:
         """The eval loss over up to 4 eval batches (as many on every rank
@@ -617,35 +573,10 @@ class DiTTrainer:
         self._micro = mini
 
 
-def step_flops(cfg: Config, batch: int, cond_tokens: int) -> Dict[str, float]:
-    """Floating-point operations of one DiT training step from the shapes
-    (a multiply-add is 2): ``forward`` (patch and conditioning projections,
-    the blocks' token-wise matmuls, attention scores and values, the AdaLN
-    and time-embedding linears, the output projection), ``model`` = 3 x
-    forward (forward + backward), ``with_recompute`` = model + the blocks'
-    forward again (per-block checkpointing)."""
-    d, p, temb = cfg.hidden_dim, cfg.patch_size, cfg.time_embed_dim
-    s_img = (cfg.sample_height // p) * (cfg.sample_width // p)
-    s = s_img + cond_tokens
-    block = (2 * s * 4 * d * d              # q, k, v, out
-             + 2 * s * 2 * d * 4 * d        # FFN in and out
-             + 2 * 2 * s * s * d            # scores and values
-             + 2 * 2 * temb * 6 * d)        # two AdaLN-zero linears
-    rest = (2 * s_img * cfg.in_channels * p * p * d
-            + 2 * cond_tokens * cfg.text_embed_dim * 16 * d
-            + 2 * (d * temb + temb * temb) + 2 * temb * 2 * d
-            + 2 * s_img * d * p * p * cfg.out_channels)
-    fwd = batch * (cfg.num_layers * block + rest)
-    recompute = batch * cfg.num_layers * block \
-        if cfg.gradient_checkpointing else 0
-    return {"forward": float(fwd), "model": 3.0 * fwd,
-            "with_recompute": 3.0 * fwd + recompute}
-
-
 def frozen_vae(cfg: Config, body_model=None, template=None, *,
                device="cuda"):
     """The VAE the DiT trains against, with seeded weights
-    (``vae_trainer.init_vae_``), and its ``LatentRenderer`` on
+    (``models/init.init_vae_``), and its ``LatentRenderer`` on
     ``body_model`` / ``template`` (default: the configured ones, else the
     procedural body). Returns (vae, latent_renderer)."""
     dev = resolve_device(device)
@@ -664,7 +595,7 @@ def synthetic_setup(cfg: Config, *, device="cuda", n_items: Optional[int] = None
     ``make_encoder(cfg)``, all with seeded random weights and built on the
     device; a device batch of ``n_items`` (default ``cfg.batch_size``)
     ``SyntheticAvatarDataset`` items and one held-out item for the sampling
-    eval — the set-up of ``chip_smoke.py`` and ``training/profile_step.py``.
+    eval — the set-up of ``chip_smoke.py``.
     Returns (trainer, batch, eval_batch)."""
     from sigman_release_torch.body.smplx import synthetic_body_model
     from sigman_release_torch.body.template import synthetic_template

@@ -52,15 +52,12 @@ without gradients and trains the PatchGAN on the detached renders.
   counts, the step; or bare parameters) and the reference's safetensors
   (parameters only), through ``training/checkpoint.py``.
 
-``LatentRenderer`` is the decode path (decoder + heads -> deform ->
-render) that the trainer renders its attribute maps through; called on a
-latent it is the JAX trainer's ``render_latent`` (no gradients), which the
-DiT trainer's sampling eval runs.
+The trainer renders its attribute maps through ``avatar.LatentRenderer``
+(grid-sample -> deform -> render).
 """
 
 from __future__ import annotations
 
-import contextlib
 import itertools
 import os
 from typing import Dict, Optional
@@ -68,148 +65,41 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.nn.parallel import DistributedDataParallel as DDP
 
 from sigman_release_torch import convert
-from sigman_release_torch.body.deformer import GaussianDeformer
-from sigman_release_torch.body.smplx import (
-    SMPLXModel,
-    load_smplx_npz,
-    parse_param_vector,
-    synthetic_body_model,
-)
+from sigman_release_torch.avatar import LatentRenderer
+from sigman_release_torch.body.smplx import SMPLXModel, synthetic_body_model
 from sigman_release_torch.body.template import (
     TemplateAssets,
-    load_template_dir,
     synthetic_template,
 )
 from sigman_release_torch.config import Config
 from sigman_release_torch.device import resolve_device
-from sigman_release_torch.inference import HEAD_INIT_STD, random_weights_
 from sigman_release_torch.losses.combined import VAELoss
 from sigman_release_torch.losses.gan import PatchDiscriminator, disc_layers
 from sigman_release_torch.losses.lpips import LPIPS, load_lpips_params
 from sigman_release_torch.losses.metrics import psnr, ssim
-from sigman_release_torch.models.vae import (
-    DiagonalGaussian,
-    VAEModel,
-    compose_rotations,
-    sample_gaussian_attrs,
-)
-from sigman_release_torch.parallel import fsdp
+from sigman_release_torch.models.init import init_vae_, random_weights_
+from sigman_release_torch.models.vae import DiagonalGaussian, VAEModel
 from sigman_release_torch.parallel.mesh import (
     Mesh,
     make_mesh,
-    prefetch_to_device,
     rank_seed,
     shard_batch,
 )
-from sigman_release_torch.renderer import GaussianRenderer
-from sigman_release_torch.training import checkpoint
-from sigman_release_torch.utils.profiling import StepTimer, trace_if
+from sigman_release_torch.training import checkpoint, loop
+
+# ``_apply`` looks the clip up in this module: the multi-rank cases
+# (``training/cases.py``) and the tests tap it by patching this name
+from sigman_release_torch.training.loop import (
+    clip_by_global_norm_,
+    no_sync,
+    wrap_ddp,
+)
 from sigman_release_torch.utils.timing import NULL_TIMER
 
 BATCH_KEYS = ("input", "UV_inital", "images_output", "masks_output",
               "cam_view", "cam_view_proj", "smpl_params")
-
-
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
-    """Scale the gradients by max_norm / norm when their global norm
-    reaches ``max_norm`` (the JAX package's optimizer rule, no epsilon).
-    Sharded (DTensor) gradients: the norm of the whole gradients, each
-    element counted once (``fsdp.global_norm``), and each rank scales its
-    pieces. Returns the norm before clipping."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if any(fsdp.is_sharded(g) for g in grads):
-        norm = fsdp.global_norm(grads)
-        grads = [fsdp.local(g) for g in grads]
-    else:
-        norm = torch.linalg.vector_norm(
-            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
-    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
-    torch._foreach_mul_(grads, scale)
-    return norm
-
-
-class LatentRenderer:
-    """The VAE's decode path to rendered views: decoder + Gaussian heads ->
-    UV grid-sample -> LBS deformer -> rotation composition -> tile
-    rasterizer, on one body model and template. ``VAETrainer`` renders its
-    attribute maps through it; the DiT trainer's sampling eval calls it on
-    sampled latents with a frozen VAE."""
-
-    def __init__(self, cfg: Config, vae: VAEModel,
-                 body_model: Optional[SMPLXModel] = None,
-                 template: Optional[TemplateAssets] = None, *,
-                 device="cuda"):
-        dev = resolve_device(device)
-        self.device, self.vae = dev, vae
-        if body_model is None:
-            body_model = (load_smplx_npz(cfg.smplx_model_path)
-                          if cfg.smplx_model_path else synthetic_body_model())
-        body_model = body_model.to(dev)
-        if template is None:
-            try:
-                template = load_template_dir(cfg.template_dir)
-            except (FileNotFoundError, OSError):
-                template = synthetic_template(body_model)
-        self.template = t = template.to(dev)
-        self.deformer = GaussianDeformer(body_model, t.init_faces,
-                                         t.init_spdir, t.init_podir,
-                                         t.init_lbsw, t.weight_mask())
-        with torch.no_grad():
-            self.deformer_state = self.deformer.initialize()
-        self.renderer = GaussianRenderer(cfg)
-        self.autocast = cfg.mixed_precision == "bf16"
-
-    def render_attrs(self, attr_map, batch, timer=NULL_TIMER):
-        """UV attribute map -> grid-sample -> deform -> rasterize."""
-        t = self.template
-        with timer("deform"):
-            attrs = sample_gaussian_attrs(attr_map, t.init_uv)
-            canon = t.init_pcd[None] + attrs["offset"]
-            posed = self.deformer.prepare(
-                parse_param_vector(batch["smpl_params"]))
-            points, tfs = self.deformer(self.deformer_state, posed, canon)
-            rot = compose_rotations(attrs["rot"], t.init_rot, tfs)
-        gaussians = {"position": points, "opacity": attrs["opacity"],
-                     "scale": attrs["scale"], "cov3d": rot,
-                     "rgb": attrs["rgb"]}
-        render = self.renderer.render(gaussians, batch["cam_view"],
-                                      batch["cam_view_proj"], timer=timer)
-        return {"images_pred": render["image"],
-                "alphas_pred": render["alpha"],
-                "images_gt": batch["images_output"],
-                "masks_gt": batch["masks_output"],
-                "overflow": render["overflow"]}
-
-    @torch.no_grad()
-    def __call__(self, z: torch.Tensor, batch,
-                 timer=NULL_TIMER) -> Dict[str, torch.Tensor]:
-        """Decode-only path: latent z [B,h,w,Cl] (already divided by
-        ``vae_scaling_factor``) -> decoder + heads -> deform -> render, for
-        a device batch. The spans "decoder", "deform", "knn", "binning" and
-        "forward_tiles" go to ``timer``."""
-        with timer("decoder"), torch.autocast(
-                self.device.type, dtype=torch.bfloat16,
-                enabled=self.autocast):
-            attr_map = self.vae.decode(z)
-        return self.render_attrs(attr_map.float(), batch, timer)
-
-
-def wrap_ddp(module: nn.Module, device: torch.device) -> DDP:
-    """``module`` under DDP over every rank, its gradients views of the
-    all-reduce buckets (no second copy). Every parameter must get a
-    gradient in each backward through it."""
-    return DDP(module, device_ids=[device] if device.type == "cuda" else None,
-               gradient_as_bucket_view=True)
-
-
-def no_sync(ddp: Optional[DDP], sync: bool):
-    """``ddp.no_sync()`` on an accumulation micro-step that is not the
-    last; else nothing."""
-    return ddp.no_sync() if ddp is not None and not sync \
-        else contextlib.nullcontext()
 
 
 class GeneratorModule(nn.Module):
@@ -222,22 +112,6 @@ class GeneratorModule(nn.Module):
 
     def forward(self, *args, **kwargs):
         return self.vae(*args, **kwargs)
-
-
-def init_vae_(vae: VAEModel, seed: int) -> VAEModel:
-    """Seeded VAE weights: linear/conv N(0, 1/fan_in), the Gaussian heads at
-    std 1e-3 (decoded offsets start near the template surface), the UV
-    query grid N(0, 1), norms 1/0."""
-    dev = next(vae.parameters()).device
-
-    def gen(offset):
-        return torch.Generator(device=dev).manual_seed(seed + offset)
-
-    random_weights_(vae, gen(0))
-    random_weights_(vae.heads, gen(1), std=HEAD_INIT_STD)
-    with torch.no_grad():
-        vae.autoencoder.uv_latent.normal_(0.0, 1.0, generator=gen(4))
-    return vae
 
 
 class VAETrainer:
@@ -506,66 +380,38 @@ class VAETrainer:
             profile_dir: Optional[str] = None,
             profile_every: int = 500) -> Dict[str, float]:
         """Alternate G and D steps by step parity once ``disc_start`` is
-        reached, over ``loader`` epochs until ``num_steps`` (one epoch of
-        the shortest rank's loader if None; every rank must be given the
-        same ``num_steps``): log every ``log_every`` steps, save to
-        ``ckpt_path`` every ``save_ckpt_steps`` and at the end, and every
-        ``eval_every`` steps ``evaluate`` on ``eval_loader`` (PNG at
-        ``<workspace>/eval_<step>.png``), keeping the best of each metric
-        (lowest lpips, highest of the others), logged as ``best_*`` at the
-        end. Only rank 0 prints and logs. Batches reach the device
-        ``prefetch_to_device`` ahead. With ``profile_dir`` every
-        ``profile_every``-th step (counted from 0, the first not) is traced
-        into it (``utils/profiling.trace_if``). Returns the last step's logs
-        as floats."""
-        cfg = self.cfg
-        lead = self.mesh.rank == 0
-        if num_steps is None:
-            num_steps = self.step + self.mesh.min_int(len(loader))
-        timer = StepTimer()
-        timer.tick()
-        logs: Dict[str, float] = {}
+        reached, in ``loop.fit`` (its step count, cadences, state file,
+        prefetch and tracing). Every ``eval_every`` steps ``evaluate`` on
+        ``eval_loader`` (PNG at ``<workspace>/eval_<step>.png``), keeping
+        the best of each metric (lowest lpips, highest of the others),
+        logged as ``best_*`` at the end. Only rank 0 prints and logs.
+        Returns the last step's logs as floats."""
+        cfg, lead = self.cfg, self.mesh.rank == 0
         best: Dict[str, float] = {}
-        while self.step < num_steps:
-            host = ({k: b[k] for k in BATCH_KEYS} for b in loader)
-            taken = 0
-            for batch in timer.timed(prefetch_to_device(
-                    host, self.mesh, self.device)):
-                if self.step >= num_steps:
-                    break
-                taken += 1
-                use_d = self.step >= cfg.disc_start and self.step % 2 == 1
-                with trace_if(profile_dir, self.step, every=profile_every):
-                    out = (self.train_step_d(batch) if use_d
-                           else self.train_step_g(batch))
-                logs = {n: float(v) for n, v in out.items()}
-                timer.tick()
-                if self.step % log_every == 0 and lead:
-                    summ = timer.summary()
-                    print(f"[vae] step {self.step} {logs} "
-                          f"({summ.get('step_time_mean_s', 0.0):.2f}s/step, "
-                          f"data wait {summ.get('data_wait_mean_s', 0.0):.3f}s"
-                          f" = {summ.get('data_wait_share', 0.0):.1%})",
-                          flush=True)
-                    if logger is not None:
-                        logger.log(self.step, {**logs, **summ})
-                if ckpt_path and self.step % cfg.save_ckpt_steps == 0:
-                    self.save(ckpt_path)
-                if (eval_loader is not None and eval_every
-                        and self.step % eval_every == 0):
-                    ev = self.evaluate(eval_loader, vis_path=os.path.join(
-                        cfg.workspace, f"eval_{self.step:07d}.png"))
-                    for k, v in ev.items():
-                        if k not in best or (v > best[k]) == ("lpips" not in k):
-                            best[k] = v
-                    if lead:
-                        print(f"[vae] eval @ {self.step}: {ev}", flush=True)
-                    if logger is not None:
-                        logger.log(self.step, ev)
-            if not taken and self.step < num_steps:
-                raise ValueError("fit: the loader yields no batch")
-        if ckpt_path:
-            self.save(ckpt_path)
+
+        def step(batch):
+            if self.step >= cfg.disc_start and self.step % 2 == 1:
+                return self.train_step_d(batch)
+            return self.train_step_g(batch)
+
+        def evaluate():
+            ev = self.evaluate(eval_loader, vis_path=os.path.join(
+                cfg.workspace, f"eval_{self.step:07d}.png"))
+            for k, v in ev.items():
+                if k not in best or (v > best[k]) == ("lpips" not in k):
+                    best[k] = v
+            if lead:
+                print(f"[vae] eval @ {self.step}: {ev}", flush=True)
+            if logger is not None:
+                logger.log(self.step, ev)
+
+        logs = loop.fit(
+            self, loader, step, keys=lambda b: BATCH_KEYS,
+            head=lambda logs: f"[vae] step {self.step} {logs}",
+            evaluate=None if eval_loader is None else evaluate,
+            num_steps=num_steps, log_every=log_every, eval_every=eval_every,
+            ckpt_path=ckpt_path, logger=logger, profile_dir=profile_dir,
+            profile_every=profile_every)
         if best and lead:
             summary = {f"best_{k}": v for k, v in best.items()}
             print(f"[vae] best eval: {summary}", flush=True)
@@ -672,7 +518,7 @@ def synthetic_setup(cfg: Config, *, device="cuda", n_verts: int = 100_002,
     per face; pass ``body_model`` and ``template`` to reuse built ones; its
     ``mesh`` as ``VAETrainer`` takes it) and
     one ``SyntheticAvatarDataset`` item as a device batch of 1 — the
-    training set-up of ``chip_smoke.py`` and ``training/profile_step.py``.
+    training set-up of ``chip_smoke.py``.
     Returns (trainer, batch)."""
     from sigman_release_torch.data.dataset import SyntheticAvatarDataset
 

@@ -316,8 +316,8 @@ def test_ddp_at_world_size_one_matches_the_bare_steps(cuda_device, tmp_path):
 
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.data.dataset import SyntheticAvatarDataset
-    from sigman_release_torch.parallel.cases import ONE
     from sigman_release_torch.parallel.mesh import make_mesh
+    from sigman_release_torch.training.cases import ONE
     from sigman_release_torch.training.vae_trainer import VAETrainer
 
     cfg = PRESETS["test_tiny"].replace(disc_start=1, gradient_clip=1e4)
@@ -354,8 +354,8 @@ def test_ddp_at_world_size_one_matches_the_bare_steps(cuda_device, tmp_path):
 def test_prefetch_to_device_on_the_card(cuda_device):
     """Pinned host copies on a side stream: the batches arrive in order, on
     the card, equal to the host arrays."""
-    from sigman_release_torch.parallel.cases import ONE
     from sigman_release_torch.parallel.mesh import prefetch_to_device
+    from sigman_release_torch.training.cases import ONE
 
     batches = [{"x": np.full((2, 3, 64, 64), i, np.float32),
                 "item": [f"i{i}"]} for i in range(6)]

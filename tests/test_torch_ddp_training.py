@@ -3,7 +3,7 @@ gloo (``parallel/launch.py``: a ``file://`` rendezvous in a fresh
 directory, one deadline, two threads per rank) against one process on the
 whole batch, ``test_tiny`` in f32.
 
-Each case (``parallel/cases.py``) gives the two ranks the halves of one
+Each case (``training/cases.py``) gives the two ranks the halves of one
 batch (or, on a 'view' axis, the halves of its views) and the draws of the
 whole batch; rank 0 first takes the same steps in one process on all of
 it. Held: each step's loss within ``LOSS_TOL`` relative, the gradient
@@ -38,7 +38,7 @@ LOG_TOL = 1e-6                  # logs against the mean of the ranks' logs
 EVAL_TOL = 1e-5                 # eval metrics, relative
 TIMEOUT = 240                   # seconds for the two ranks of one case
 
-CASES = "sigman_release_torch.parallel.cases"
+CASES = "sigman_release_torch.training.cases"
 VCFG = PRESETS["test_tiny"].replace(gradient_clip=1e4, disc_start=2,
                                     attn_dropout=0.0)
 DCFG = PRESETS["test_tiny"].replace(gradient_clip=1e4, lr_scheduler="constant",

@@ -65,7 +65,7 @@ def _batch():
 
 @pytest.fixture(scope="module")
 def port_meshes():
-    return launch.run("sigman_release_torch.parallel.cases:mesh_case", 2,
+    return launch.run("sigman_release_torch.training.cases:mesh_case", 2,
                       {"layouts": LAYOUTS}, timeout=120)
 
 
@@ -192,7 +192,7 @@ def view_runs():
     state_d, j_logs = jt.train_step_d(state, sharded, key)   # donates state
     j_disc = convert.convert_disc(_tree(state_d.disc_params), tt.disc)
     port = launch.run(
-        "sigman_release_torch.parallel.cases:vae_case", 2,
+        "sigman_release_torch.training.cases:vae_case", 2,
         dict(cfg=TCFG, mesh_shape=(1, 2), mesh_axes=("data", "view"),
              items=[0], steps=("d",), noise=noise[0], rank_noise=noise,
              weights=weights,

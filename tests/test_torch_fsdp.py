@@ -1,6 +1,6 @@
 """The DiT trainer's FSDP (``spmd="fsdp"`` over 'data') and its 'model' axis
 (tensor parallelism) on the CPU: gloo ranks from ``parallel/launch.py``
-running ``parallel/cases.py``, ``test_tiny`` in f32.
+running ``training/cases.py``, ``test_tiny`` in f32.
 
 * Port against JAX: the JAX ``DiTTrainer(spmd="fsdp")`` step on a (2,)
   'data' mesh and on a (2, 2) ('data', 'model') mesh of the 8 virtual CPU
@@ -36,10 +36,11 @@ from sigman_release_torch.config import PRESETS
 from sigman_release_torch.models.dit import DiTModel
 from sigman_release_torch.models.encoders import ViTFeatureEncoder
 from sigman_release_torch.models.vae import VAEModel
-from sigman_release_torch.parallel import cases, launch
+from sigman_release_torch.parallel import launch
+from sigman_release_torch.training import cases
 from sigman_release_torch.training.dit_trainer import DiTTrainer
 
-CASES = "sigman_release_torch.parallel.cases"
+CASES = "sigman_release_torch.training.cases"
 TIMEOUT = 240
 # test_torch_dit_training.py's shapes and tolerances (one JAX step)
 OVR = dict(num_views=2, num_input_views=2, batch_size=2,

@@ -18,8 +18,9 @@ import torch
 
 from sigman_release_torch import train_dit, train_vae
 from sigman_release_torch.config import PRESETS
-from sigman_release_torch.parallel import cases, launch
+from sigman_release_torch.parallel import launch
 from sigman_release_torch.parallel.mesh import make_mesh
+from sigman_release_torch.training import cases
 from sigman_release_torch.training.dit_trainer import DiTTrainer
 from sigman_release_torch.training.vae_trainer import VAETrainer
 
@@ -33,7 +34,7 @@ def dit_entry(tmp_path_factory):
     ws = tmp_path_factory.mktemp("dit_fsdp_ws")
     argv = ARGV + ["--num_epochs", "1", "--workspace", str(ws),
                    "--mesh_shape", "-1,2", "--mesh_axes", "data,model"]
-    res = launch.run("sigman_release_torch.parallel.cases:entry_case", 2,
+    res = launch.run("sigman_release_torch.training.cases:entry_case", 2,
                      {"module": "sigman_release_torch.train_dit",
                       "argv": argv}, timeout=240)
     return res, ws

@@ -15,7 +15,7 @@ from sigman_release_tpu.config import PRESETS as JPRESETS
 from sigman_release_tpu.models.vae import VAEModel as JVAE
 from sigman_release_torch import convert
 from sigman_release_torch.config import PRESETS
-from sigman_release_torch.inference import random_weights_
+from sigman_release_torch.models.init import random_weights_
 from sigman_release_torch.models.vae import (
     REMAT_POLICIES,
     ResnetBlock,
