@@ -173,17 +173,32 @@ Phases (any failure exits non-zero before the final line):
              published peak. Every path that counts K1 launches counts the
              KNN's too (one a render through ``GaussianRenderer``).
 
-19. qk        — last: the denoisers' QK RMSNorm + RoPE kernel
+19. qk        — the denoisers' QK RMSNorm + RoPE kernel
              (``ops/csrc/qk_norm_rope.cu``) at the serving cells' shapes
              (``QK_SHAPES``: the DiT's q and k as views of their
              projections, FLUX's read in place from the packed qkv of each
              stream and from the single block's ``linear1``), against its
              plain twin: at most 1 bf16 ulp apart (the share unequal
              printed), the kernel's ms (CUDA events over ``QK_REPS``
-             launches), the plain twin's and the bytes bound (q and k read
+             launches queued behind ~40 ms of products, as in phase 20),
+             the plain twin's and the bytes bound (q and k read
              and written once, the tables and weights once); the DiT again
              with f32 weights (its trainer's sampling eval under autocast).
              Launches of ``qk_norm_rope`` are counted per phase.
+
+20. ada       — last: the denoisers' AdaLN kernel (``ops/csrc/ada_norm.cu``)
+             at the serving cells' shapes (``ADA_SHAPES``: the DiT's cond
+             and image streams into one joined buffer, FLUX's double block
+             with a buffer a stream, its single block over the joined
+             sequence), each entry point (the modulated norm; the gated
+             residual add with the next norm; the gated add alone) against
+             its plain twin, bit for bit (the share unequal and the most
+             ulps printed), the kernel's ms (CUDA events over ``ADA_REPS``
+             launches queued behind ~40 ms of products, so the host's
+             side of a call is not what is timed), the plain twin's and
+             the bytes bound (every row value read once and every output
+             written once, the per-item rows once). Launches of
+             ``ada_norm`` are counted per phase.
 
 Phases 2 and 6 also run ``cull_cases``; phases 4, 8, 10 and 12 print each
 stream's segment lengths and (pair, warp) slots and both bounds (this one:
@@ -326,11 +341,33 @@ def gpu_name_and_power() -> str:
         check=True, capture_output=True, text=True).stdout.strip()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up."""
+def gemm_head(dev):
+    """A function that queues ``n`` 8192^2 bf16 products (~1.1 ms of device
+    work each) on ``dev``, after ``WARM_GEMMS`` of them bring the card to
+    its clocks: the head :func:`cuda_ms` queues short calls behind."""
+    import torch
+
+    warm = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+
+    def head(n=HEAD_GEMMS):
+        for _ in range(n):
+            warm @ warm
+
+    head(WARM_GEMMS)
+    return head
+
+
+def cuda_ms(fn, reps: int, head=None) -> float:
+    """Mean device milliseconds per call over ``reps`` calls, after one
+    warm-up; with ``head``, the calls are queued behind ``head()`` (a
+    :func:`gemm_head`: work that keeps the device busy while the host
+    queues them, so a call whose host side outlasts its device time is
+    timed on the device)."""
     import torch
 
     fn()
+    if head is not None:
+        head()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -720,6 +757,7 @@ def main():
     from sigman_release_torch.config import PRESETS
     from sigman_release_torch.inference import (
         AvatarPipeline, normalize_image, orbit_rig)
+    from sigman_release_torch.ops import ada_norm as ada
     from sigman_release_torch.ops import knn
     from sigman_release_torch.ops import qk_norm_rope as qk
     from sigman_release_torch.ops.rasterizer import backward_tiles as k2
@@ -738,7 +776,8 @@ def main():
     # ---- 1. build -----------------------------------------------------------
     clock.start("build")
     t0 = time.perf_counter()
-    cuda_build.build([k1.SOURCE, k2.SOURCE, knn.SOURCE, qk.SOURCE])
+    cuda_build.build([k1.SOURCE, k2.SOURCE, knn.SOURCE, qk.SOURCE,
+                      ada.SOURCE])
     print(f"[build] {len(cuda_build.build_logs)} source(s) built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for src, log in cuda_build.build_logs.items():
@@ -796,6 +835,7 @@ def main():
     k1.forward_tiles.launches = 0
     knn.mean_knn_dist2.launches = 0
     qk.qk_norm_rope.launches = 0
+    ada.ada_norm.launches = 0
     t0 = time.perf_counter()
     res = pipe(image, smpl_vec, cv, cvp, generator=gen, steps=30, timer=timer)
     torch.cuda.synchronize()
@@ -803,18 +843,21 @@ def main():
     launches = k1.forward_tiles.launches
     knn_serve = knn.mean_knn_dist2.launches
     qk_paths = {"serve": qk.qk_norm_rope.launches}
-    qk_mark = [qk.qk_norm_rope.launches]
+    ada_paths = {"serve": ada.ada_norm.launches}
+    qk_mark = [qk.qk_norm_rope.launches, ada.ada_norm.launches]
 
-    def qk_path(name):          # qk_norm_rope launches since the last mark
+    def qk_path(name):          # both ops' launches since the last mark
         qk_paths[name] = qk.qk_norm_rope.launches - qk_mark[0]
-        qk_mark[0] = qk.qk_norm_rope.launches
+        ada_paths[name] = ada.ada_norm.launches - qk_mark[1]
+        qk_mark[:] = [qk.qk_norm_rope.launches, ada.ada_norm.launches]
     render = res["render"]
     stages = ", ".join(f"{k} {v * 1e3:.1f} ms ({100 * v / wall:.1f}%)"
                        for k, v in timer.seconds.items())
     print(f"[main] request {wall * 1e3:.1f} ms: {stages}")
     print(f"[main] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB; forward_tiles launches {launches}, mean_knn_dist2 launches "
-          f"{knn_serve}, qk_norm_rope launches {qk_paths['serve']}; overflow "
+          f"{knn_serve}, qk_norm_rope launches {qk_paths['serve']}, "
+          f"ada_norm launches {ada_paths['serve']}; overflow "
           f"{render['overflow'].tolist()}")
     alpha = render["alpha"]
     print(f"[main] alpha mean {alpha.mean().item():.4f}, coverage (alpha > "
@@ -829,6 +872,9 @@ def main():
     if qk_paths["serve"] != qk_want:
         fail(f"the main path launched qk_norm_rope {qk_paths['serve']} "
              f"times, not once a block a step ({qk_want})")
+    if ada_paths["serve"] != 3 * qk_want:
+        fail(f"the main path launched ada_norm {ada_paths['serve']} times, "
+             f"not three times a block a step ({3 * qk_want})")
     hw = cfg.output_size
     if tuple(render["image"].shape) != (1, N_VIEWS, 3, hw, hw):
         fail(f"unexpected image shape {tuple(render['image'].shape)}")
@@ -930,6 +976,7 @@ def main():
     qk_path("knobs")
     knn_held = knn_phase(dev, template, clock)
     qk_held = qk_phase(dev, clock)
+    ada_held = ada_phase(dev, clock)
     clock.report()
 
     # phase 14's paths, each counted from 0
@@ -1070,6 +1117,15 @@ def main():
         "launches": sum(qk_paths.values()),
         "launches_by_path": qk_paths,
         **qk_held,
+        "library_ms": None,
+    }, {
+        "name": "ada_norm",
+        "route": "cuda",
+        "source": "sigman_release_torch/ops/csrc/ada_norm.cu",
+        "replaces": None,
+        "launches": sum(ada_paths.values()),
+        "launches_by_path": ada_paths,
+        **ada_held,
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
@@ -3248,6 +3304,18 @@ KNN_ITEMS = 8                   # the vae_b batch, and a request's avatars
 KNN_REPS = 20
 KNN_PAIR_OPS = 5                # f32 instructions a pair test (csrc/knn.cu)
 QK_REPS = 50
+ADA_REPS = 50
+WARM_GEMMS = 300                # 8192^2 bf16 products before phases 19, 20 time
+HEAD_GEMMS = 40                 # and before each timed run of their calls
+# the denoisers' AdaLN passes at the serving cells' shapes: batch, D, each
+# stream's tokens, whether the streams are joined into one buffer, whether
+# the norm is affine, eps
+ADA_SHAPES = {
+    "dit": (16, 2048, (64, 1024), True, True, 1e-5),   # dit-serve: CFG
+                                                       # batch 16
+    "flux_double": (4, 3072, (1024, 1024), False, False, 1e-6),
+    "flux_single": (4, 3072, (2048,), True, False, 1e-6),
+}
 # the denoisers' QK norm + RoPE at the serving cells' shapes: batch, heads,
 # head dim, each stream's tokens, rope_from, round_before_scale
 QK_SHAPES = {
@@ -3892,6 +3960,7 @@ def qk_phase(dev, clock):
     from sigman_release_torch.ops import qk_norm_rope as qk
 
     clock.start("qk")
+    head = gemm_head(dev)
     res = {}
     runs = [(name, name, torch.bfloat16) for name in QK_SHAPES]
     runs.append(("dit_f32_weights", "dit", torch.float32))
@@ -3919,8 +3988,8 @@ def qk_phase(dev, clock):
             worst = max(u.max().item() for u in ulps)
             unequal = sum((u > 0).sum().item() for u in ulps) / sum(
                 u.numel() for u in ulps)
-            ms = cuda_ms(kernel, QK_REPS)
-            plain_ms = cuda_ms(plain, 5)
+            ms = cuda_ms(kernel, QK_REPS, head)
+            plain_ms = cuda_ms(plain, 5, head)
         n = sum(batch * s * heads * d for s in tokens)
         table_bytes = 2 * 4 * (sum(tokens) - rope_from) * d
         n_bytes = 2 * (2 * n * 2) + table_bytes + 2 * len(tokens) * d * (
@@ -3942,6 +4011,132 @@ def qk_phase(dev, clock):
     return {**res["dit"], "bound_by": "bytes",
             **{k: v for k, v in res.items() if k != "dit"}}
 
+
+
+def ada_inputs(dev, name, seed):
+    """The streams of ``ADA_SHAPES[name]`` as the models hand them over: x
+    and the gated add's y [B, S_i, D] (y read from one joined output when
+    the streams are joined), each stream's modulation rows as views of a
+    [B, 6 D] linear output, the norm's weights (affine: bf16, away from 1
+    and 0)."""
+    import torch
+
+    from sigman_release_torch.ops import ada_norm as ada
+
+    batch, dim, tokens, join, affine, eps = ADA_SHAPES[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=g, device=dev)
+                ).to(torch.bfloat16)
+
+    xs = [randn(batch, s, dim, scale=2.0, shift=0.1 * i)
+          for i, s in enumerate(tokens)]
+    if join:
+        out, at, ys = randn(batch, sum(tokens), dim), 0, []
+        for s in tokens:
+            ys.append(out[:, at:at + s])
+            at += s
+    else:
+        ys = [randn(batch, s, dim) for s in tokens]
+    rows = [randn(batch, 6 * dim, scale=0.5)[:, None].chunk(6, -1)
+            for _ in tokens]
+    norm = ada.Norm(*(randn(dim, scale=0.3, shift=1.0 - i)
+                      for i in range(2)) if affine else (None, None), eps)
+    return xs, ys, rows, norm
+
+
+def ada_bytes(batch, dim, tokens, gated, normed, affine):
+    """Bytes one launch has to move: each row value read once and each
+    output written once (bf16), each item's modulation rows and the norm's
+    weights once."""
+    n = batch * sum(tokens) * dim
+    row_values = n * ((2 if gated else 1) + (1 if gated else 0)
+                      + (1 if normed else 0))
+    per_item = batch * len(tokens) * dim * ((1 if gated else 0)
+                                            + (2 if normed else 0))
+    weights = 2 * dim if normed and affine else 0
+    return 2 * (row_values + per_item + weights)
+
+
+def ada_phase(dev, clock):
+    """Phase 20: the AdaLN kernel's entry points against their plain twins
+    at the serving cells' shapes, their time and their bytes bound. Returns
+    the numbers the kernels line needs."""
+    import torch
+
+    from sigman_release_torch.ops import ada_norm as ada
+
+    clock.start("ada")
+    head = gemm_head(dev)
+    res = {}
+    for name, (batch, dim, tokens, join, affine, eps) in ADA_SHAPES.items():
+        xs, ys, rows, norm = ada_inputs(dev, name, seed=len(res))
+        mods = [r[:2] for r in rows]
+        gates = [r[2] for r in rows]
+        nexts = [r[3:5] for r in rows]
+        entries = {
+            "norm": (False, True,
+                     lambda: ada.norm_modulate(xs, mods, norm, join),
+                     lambda: ada.norm_modulate_plain(xs, mods, norm, join)),
+            "gated_norm": (True, True,
+                           lambda: ada.gated_residual(xs, gates, ys, nexts,
+                                                      norm, join),
+                           lambda: ada.gated_residual_plain(
+                               xs, gates, ys, nexts, norm, join)),
+            "gated": (True, False,
+                      lambda: ada.gated_residual(xs, gates, ys),
+                      lambda: ada.gated_residual_plain(xs, gates, ys)),
+        }
+        if name == "flux_single":
+            del entries["gated_norm"]
+        for entry, (gated, normed, kernel, plain) in entries.items():
+            label = f"{name}.{entry}"
+            with torch.no_grad():
+                before = ada.ada_norm.launches
+                got = kernel()
+                if ada.ada_norm.launches != before + 1:
+                    fail(f"ada_norm did not launch its kernel once ({label})")
+                want = plain()
+                torch.cuda.synchronize()
+                pairs = list(zip(flat(got), flat(want)))
+                ulps = [bf16_ulps(a, b) for a, b in pairs]
+                worst = max(u.max().item() for u in ulps)
+                unequal = sum((u > 0).sum().item() for u in ulps) / sum(
+                    u.numel() for u in ulps)
+                ms = cuda_ms(kernel, ADA_REPS, head)
+                plain_ms = cuda_ms(plain, 5, head)
+            n_bytes = ada_bytes(batch, dim, tokens, gated, normed, affine)
+            bound_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+            print(f"[ada] {label}: B = {batch}, tokens {tokens}, D {dim}, "
+                  f"{'joined' if join else 'a buffer a stream'}, "
+                  f"{'affine' if affine else 'no affine'}: kernel {ms:.4f} "
+                  f"ms, plain {plain_ms:.3f} ms; bytes bound {bound_ms:.4f} "
+                  f"ms ({n_bytes / 1e6:.1f} MB at 3.35 TB/s: "
+                  f"{100 * bound_ms / ms:.1f}%); at most {worst} bf16 ulp "
+                  f"apart, {unequal:.3e} of the outputs unequal", flush=True)
+            if any(a.shape != b.shape for a, b in pairs):
+                fail(f"ada_norm's outputs differ in shape from its plain "
+                     f"twin's ({label})")
+            if worst != 0:
+                fail(f"ada_norm differs from its plain twin by up to {worst} "
+                     f"ulp ({label})")
+            res[label] = {"ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "max_ulps": worst,
+                          "unequal_share": unequal}
+            del got, want, pairs, ulps
+        del xs, ys, rows, norm, entries
+        torch.cuda.empty_cache()
+    del head
+    return {**res["dit.gated_norm"], "bound_by": "bytes",
+            **{k: v for k, v in res.items() if k != "dit.gated_norm"}}
+
+
+def flat(out):
+    """The tensors of an op's result: a tensor, a list, or (list, normed)."""
+    if isinstance(out, (list, tuple)):
+        return [t for part in out for t in flat(part)]
+    return [out]
 
 def fmt(values, spec=".3e"):
     return "[" + ", ".join(f"{v:{spec}}" for v in values) + "]"

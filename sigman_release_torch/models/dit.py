@@ -4,10 +4,12 @@ the JAX package's ``models/dit.py``).
 * patch embed: conv-patchify the latent (p=2) and conv-4x4-stride-4 project
   the conditioning feature map into conditioning tokens,
 * blocks: AdaLN-zero (6-way shift/scale/gate for both streams, one shared
-  LayerNorm eps 1e-5), joint self-attention over [cond; image] with per-head
-  RMS qk-norm (eps 1e-6) and 2D RoPE on the image slice only (one op,
-  ``ops/qk_norm_rope.py``: a kernel when serving on the card), tanh-GELU FFN
-  over the concatenated streams,
+  LayerNorm eps 1e-5; norm, modulation and gated residual adds through
+  ``ops/ada_norm.py``: three kernel launches a block when serving on the
+  card, writing both streams into one [cond; image] buffer), joint
+  self-attention over that buffer with per-head RMS qk-norm (eps 1e-6) and
+  2D RoPE on the image slice only (one op, ``ops/qk_norm_rope.py``: a kernel
+  when serving on the card), tanh-GELU FFN over the same joined streams,
 * final LayerNorm over the joint sequence, AdaLayerNorm (shift/scale) from
   the time embedding, linear projection to p*p*out_channels, unpatchify.
 
@@ -32,6 +34,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sigman_release_torch.config import Config
+from sigman_release_torch.ops.ada_norm import gated_residual, norm_modulate
 from sigman_release_torch.ops.qk_norm_rope import qk_norm_rope
 from sigman_release_torch.utils.timing import NULL_TIMER
 
@@ -127,9 +130,9 @@ class JointAttention(nn.Module):
         self.norm_k = RMSNormPerHead(head_dim)
         self.to_out = nn.ModuleList([nn.Linear(inner, dim)])
 
-    def forward(self, image, cond, rope):
-        x = torch.cat([cond, image], dim=1)
-        s_cond = cond.shape[1]
+    def forward(self, x, s_cond, rope):
+        """x [B, S_cond + S_img, D], the joined [cond; image] sequence ->
+        the attention's output over it, joined likewise."""
         b, s, _ = x.shape
 
         def split(t):   # this rank's heads under tensor parallelism
@@ -143,23 +146,22 @@ class JointAttention(nn.Module):
         v = split(self.to_v(x))
         out = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
-        out = self.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
-        return out[:, s_cond:], out[:, :s_cond]
+        return self.to_out[0](out.transpose(1, 2).reshape(b, s, -1))
 
 
 class AdaLNZero(nn.Module):
-    """temb -> 6-way (shift, scale, gate) x (image, cond); shared LayerNorm."""
+    """temb -> 6-way (shift, scale, gate) x (image, cond), each [B, 1, D],
+    and the LayerNorm both streams share (applied by ``ops.ada_norm``)."""
 
     def __init__(self, dim: int, temb_dim: int):
         super().__init__()
         self.linear = nn.Linear(temb_dim, 6 * dim)
         self.norm = nn.LayerNorm(dim, eps=1e-5)
 
-    def forward(self, image, cond, temb):
-        sh, sc, gate, esh, esc, egate = self.linear(F.silu(temb)).chunk(6, -1)
-        image = self.norm(image) * (1 + sc[:, None]) + sh[:, None]
-        cond = self.norm(cond) * (1 + esc[:, None]) + esh[:, None]
-        return image, cond, gate[:, None], egate[:, None]
+    def forward(self, temb):
+        """(shift, scale, gate, cond shift, cond scale, cond gate): views of
+        the linear's output, read in place by the op."""
+        return self.linear(F.silu(temb))[:, None].chunk(6, -1)
 
 
 class _GeluProj(nn.Module):
@@ -193,24 +195,30 @@ class DiTBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, image, cond, temb, rope, timer=NULL_TIMER):
-        """``timer`` receives "dit_adaln" (each AdaLN-Zero norm and each
-        gated residual add: four a block), "dit_attention" and "dit_ff"
-        (the joint concatenation and the feed-forward)."""
-        with timer("dit_adaln"):
-            n_img, n_cond, g_img, g_cond = self.norm1(image, cond, temb)
-        with timer("dit_attention"):
-            a_img, a_cond = self.attn1(n_img, n_cond, rope)
-        with timer("dit_adaln"):
-            image = image + g_img * a_img
-            cond = cond + g_cond * a_cond
-
-        with timer("dit_adaln"):
-            n_img, n_cond, g_img, g_cond = self.norm2(image, cond, temb)
+        """``timer`` receives "dit_adaln" (the modulations, norm1, the
+        gated add after the attention with norm2, the gated add after the
+        feed-forward: three launches of ``ops.ada_norm`` a block when
+        serving), "dit_attention" and "dit_ff". Both streams' norms land
+        in one joined [cond; image] buffer, which the attention's and the
+        feed-forward's linears read."""
         s = cond.shape[1]
-        with timer("dit_ff"):
-            ff = self.ff(torch.cat([n_cond, n_img], dim=1))
         with timer("dit_adaln"):
-            return image + g_img * ff[:, s:], cond + g_cond * ff[:, :s]
+            sh, sc, gate, esh, esc, egate = self.norm1(temb)
+            x = norm_modulate([cond, image], [(esh, esc), (sh, sc)],
+                              self.norm1.norm)
+        with timer("dit_attention"):
+            out = self.attn1(x, s, rope)
+        with timer("dit_adaln"):
+            sh, sc, gate2, esh, esc, egate2 = self.norm2(temb)
+            (cond, image), x = gated_residual(
+                [cond, image], [egate, gate], [out[:, :s], out[:, s:]],
+                [(esh, esc), (sh, sc)], self.norm2.norm)
+        with timer("dit_ff"):
+            ff = self.ff(x)
+        with timer("dit_adaln"):
+            cond, image = gated_residual([cond, image], [egate2, gate2],
+                                         [ff[:, :s], ff[:, s:]])
+        return image, cond
 
 
 class PatchEmbed(nn.Module):
@@ -224,10 +232,14 @@ class PatchEmbed(nn.Module):
         self.cond_proj = nn.Conv2d(cfg.text_embed_dim, dim, 4, stride=4)
 
     def forward(self, latent, cond_feats):  # NCHW both
+        """-> image and cond tokens [B, S, D], contiguous: the layout the
+        blocks' ``ops.ada_norm`` kernel reads (a transposed view would keep
+        the residual stream channel-major through every block)."""
         img = self.proj(latent)
         b, dim, gh, gw = img.shape
-        img = img.flatten(2).transpose(1, 2)                # [B, gh*gw, D]
+        img = img.flatten(2).transpose(1, 2).contiguous()   # [B, gh*gw, D]
         cond = self.cond_proj(cond_feats).flatten(2).transpose(1, 2)
+        cond = cond.contiguous()
         if self.use_sincos:
             pos = torch.as_tensor(sincos_2d(dim, gh, gw), device=img.device)
             img = img + pos[None].to(img.dtype)

@@ -23,7 +23,10 @@ streams. Image tokens have ids (0, row, col), condition tokens (1, row, col)
 on their own grid (FLUX.1 Kontext's place for a context image). The RoPE
 tables are built once per (grids, device) on the device and kept. QK norm,
 RoPE and the join of the two streams' q and k are one op
-(``ops/qk_norm_rope.py``: a kernel when serving on the card).
+(``ops/qk_norm_rope.py``: a kernel when serving on the card); so are each
+block's LayerNorms with their modulation and the gated residual adds
+(``ops/ada_norm.py``: three kernel launches a double block, both streams in
+each, and two a single block when serving on the card).
 
 Parameter names follow BFL's checkpoint (``double_blocks.{i}.img_attn.qkv``
 ...). The model computes in its parameters' dtype; ``forward`` casts its
@@ -40,6 +43,8 @@ from torch import nn
 
 from sigman_release_torch.config import Config
 from sigman_release_torch.models.dit import timestep_sinusoid
+from sigman_release_torch.ops.ada_norm import (
+    Norm, gated_residual, norm_modulate)
 from sigman_release_torch.ops.qk_norm_rope import qk_norm_rope
 from sigman_release_torch.utils.timing import NULL_TIMER
 
@@ -48,6 +53,7 @@ MLP_RATIO = 4
 TIME_DIM = 256
 PATCH = 2
 EPS = 1e-6          # the QK RMSNorm's
+NORM = Norm(None, None, 1e-6)   # the blocks' LayerNorms: no affine
 
 
 class MLPEmbedder(nn.Module):
@@ -151,27 +157,25 @@ class DoubleStreamBlock(nn.Module):
     def forward(self, img, txt, vec, rope):
         img_mod = self.img_mod(vec)
         txt_mod = self.txt_mod(vec)
+        normed = norm_modulate([txt, img], [txt_mod[:2], img_mod[:2]], NORM,
+                               join=False)
         streams, vs = [], []
-        for x, mod, attn in ((txt, txt_mod, self.txt_attn),
-                             (img, img_mod, self.img_attn)):
-            x_mod = modulate(F.layer_norm(x, x.shape[-1:], eps=1e-6),
-                             mod[0], mod[1])
+        for x_mod, attn in zip(normed, (self.txt_attn, self.img_attn)):
             q, k, v = split_heads(attn.qkv(x_mod), self.heads)
             streams.append(attn.norm.stream(q, k))
             vs.append(v)
         q, k = qk_rope(streams, rope)
         out = attention(q, k, torch.cat(vs, dim=1))
         s = txt.shape[1]
-        out = {"txt": out[:, :s], "img": out[:, s:]}
-        res = []
-        for name, x, mod, attn, mlp in (
-                ("img", img, img_mod, self.img_attn, self.img_mlp),
-                ("txt", txt, txt_mod, self.txt_attn, self.txt_mlp)):
-            x = x + mod[2] * attn.proj(out[name])
-            x = x + mod[5] * mlp(modulate(
-                F.layer_norm(x, x.shape[-1:], eps=1e-6), mod[3], mod[4]))
-            res.append(x)
-        return res[0], res[1]
+        (img, txt), normed = gated_residual(
+            [img, txt], [img_mod[2], txt_mod[2]],
+            [self.img_attn.proj(out[:, s:]), self.txt_attn.proj(out[:, :s])],
+            [img_mod[3:5], txt_mod[3:5]], NORM, join=False)
+        img, txt = gated_residual(
+            [img, txt], [img_mod[5], txt_mod[5]],
+            [mlp(x_mod) for mlp, x_mod in zip((self.img_mlp, self.txt_mlp),
+                                              normed)])
+        return img, txt
 
 
 class SingleStreamBlock(nn.Module):
@@ -185,7 +189,7 @@ class SingleStreamBlock(nn.Module):
 
     def forward(self, x, vec, rope):
         shift, scale, gate = self.modulation(vec)
-        x_mod = modulate(F.layer_norm(x, x.shape[-1:], eps=1e-6), shift, scale)
+        x_mod = norm_modulate([x], [(shift, scale)], NORM)
         qkv, mlp = torch.split(self.linear1(x_mod),
                                [3 * self.dim, MLP_RATIO * self.dim], dim=-1)
         q, k, v = split_heads(qkv, self.heads)
@@ -193,7 +197,7 @@ class SingleStreamBlock(nn.Module):
         attn = attention(q, k, v)
         out = self.linear2(torch.cat(
             [attn, F.gelu(mlp, approximate="tanh")], dim=2))
-        return x + gate * out
+        return gated_residual([x], [gate], [out])[0]
 
 
 class LastLayer(nn.Module):

@@ -181,9 +181,10 @@ def test_joint_attention_keeps_its_output(dtype, rope):
     tables = dit_tables(4) if rope else None
     before = op.qk_norm_rope.launches
     with torch.no_grad():
-        got, want = new(image, cond, tables), old(image, cond, tables)
+        got = new(torch.cat([cond, image], dim=1), 4, tables)
+        want = old(image, cond, tables)
     assert op.qk_norm_rope.launches == before
-    for g, w in zip(got, want):
+    for g, w in zip((got[:, 4:], got[:, :4]), want):
         assert torch.equal(g, w)
 
 
@@ -222,8 +223,8 @@ def test_split_heads_norm_still_sums_the_weight_gradient(monkeypatch):
     attn.norm_q = fsdp.SplitHeadsNorm(attn.norm_q, group=None)
     attn.norm_k = fsdp.SplitHeadsNorm(attn.norm_k, group=None)
     image = draw((1, 16, HEADS * HEAD_DIM), 0)
-    img, cond = attn(image, draw((1, 4, HEADS * HEAD_DIM), 1), dit_tables(4))
-    (img.sum() + cond.sum()).backward()
+    x = torch.cat([draw((1, 4, HEADS * HEAD_DIM), 1), image], dim=1)
+    attn(x, 4, dit_tables(4)).sum().backward()
     assert summed == [(HEAD_DIM,), (HEAD_DIM,)]
     assert attn.norm_q.weight.grad is not None
 
@@ -322,11 +323,12 @@ def test_models_launch_once_a_block_only_without_grad(cuda_device):
     image = draw((2, 16, heads * d), 1, torch.bfloat16, 1.0, cuda_device)
     cond = draw((2, 4, heads * d), 2, torch.bfloat16, 1.0, cuda_device)
     rope = dit_tables(4, d, cuda_device)
+    x = torch.cat([cond, image], dim=1)
     before = op.qk_norm_rope.launches
     with torch.no_grad():
-        attn(image, cond, rope)
+        attn(x, 4, rope)
     assert op.qk_norm_rope.launches == before + 1
-    attn(image, cond, rope)[0].float().sum().backward()
+    attn(x, 4, rope).float().sum().backward()
     assert op.qk_norm_rope.launches == before + 1
     double = seeded(flux.DoubleStreamBlock(heads * 128, heads), 3,
                     torch.bfloat16).to(cuda_device)

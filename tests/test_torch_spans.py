@@ -146,7 +146,7 @@ def test_span_counts_of_one_sampling_call():
         num_inference_steps=3, timer=timer)
     assert timer.counts == {"ddim_step": 3, "ddim_update": 3,
                             "dit_embed": 3, "dit_attention": 3 * L,
-                            "dit_ff": 3 * L, "dit_adaln": 4 * 3 * L}
+                            "dit_ff": 3 * L, "dit_adaln": 3 * 3 * L}
 
 
 def test_recomputed_blocks_open_no_block_span():
